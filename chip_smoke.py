@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Builds every CUDA kernel of the port from the sources in the checkout
+(``nvcc``, at first use), then:
+
+1. card: prints the GPU's name and power limit and the build time;
+2. kernel phase: the forward compositor on synthetic instance arrays at the
+   full-width shape (6 views x 576x512, 16000 Gaussians) in both modes,
+   against its plain PyTorch version, timed with CUDA events;
+3. slice phase: the 2D view-anchored eval forward at the repository's
+   quality north-star configuration (``configs/templates/tpu_2d.json`` with
+   ``view_anchored``: 576x512, grid 128, crop 96x80x64, 6 cameras with
+   holdout views [5, 1], 3 U-Nets of base width 8, up to 16000 Gaussians)
+   with seeded random weights, over synthetic frames of an ellipsoid seen by
+   6 cameras: ``render_images_in_memory`` and ``make_eval_step`` through
+   the user-facing entry points, with the kernel's launch count read around
+   them, then a per-frame breakdown from the forward's own stage marks
+   (``pose_splatter_torch.utils.stages``) and a kernel-vs-plain check on
+   the instance arrays that the forward binned.
+
+Prints one JSON line with the kernels' numbers, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no
+result line, when there is no CUDA device or any phase fails. Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+H, W, N_GAUSS, VIEWS = 512, 576, 16000, 6
+TOL = 1e-5  # kernel vs plain: same math, sums in another order (see below)
+# Published H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the
+# tensor cores and HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Least float32 operations the compositor needs per (instance, pixel) pair,
+# in either mode, an FMA counted as two and expf as one: dx, dy (2); the
+# quadratic form dx*(P*dx + Q*dy) + R*dy*dy with per-row coefficients (7);
+# expf and the opacity (2); contrib = a*T (1); the rgb and alpha sums (7);
+# T -= contrib (1). Per-row set-up and comparisons are left out, so this
+# is a floor (the kernel's loop does 27 in ellipse mode, see its source).
+OPS_PER_PAIR = 20
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------------
+# Timing and bounds.
+# ----------------------------------------------------------------------------
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_bound(astarts, counts, jstop, tile_shape, G):
+    """Least time on an H100 for the compositor's work on these inputs:
+    the instance rows it walks (each read once, 64 bytes) and its outputs
+    written once, against (instance, pixel) pairs at float32 peak."""
+    import torch
+
+    P = tile_shape[0] * tile_shape[1]
+    counts = counts.long()
+    walked = int(torch.minimum(counts, jstop.long() * G).sum())
+    T = counts.numel()
+    nbytes = walked * 64 + T * (4 + 4 + 8) + T * P * 16 + T * 4
+    ops = walked * P * OPS_PER_PAIR
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    # One block walks a tile's segment alone, so the longest segment (in
+    # chunks) is a floor on the kernel's time whatever the total work.
+    return dict(walked_rows=walked, bytes=nbytes, ops=ops,
+                busy_tiles=int((counts > 0).sum()),
+                max_tile_chunks=int(((counts + G - 1) // G).max()),
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+# ----------------------------------------------------------------------------
+# Phases.
+# ----------------------------------------------------------------------------
+
+def kernel_phase(report):
+    """Both modes at the full-width shape on synthetic Gaussians."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    results = {}
+    for mode in ("ellipse", "conic"):
+        def rnd(*shape):
+            return torch.rand(*shape, generator=gen).to(dev)
+
+        # Gaussians clustered on the middle of the image, as an animal's are;
+        # the conic scene is a denser band, so whole tiles reach T < 1e-4
+        # and stop early.
+        x0, xw, y0, yw = ((0.25, 0.5, 0.2, 0.6) if mode == "ellipse"
+                          else (0.15, 0.7, 0.35, 0.3))
+        means = torch.stack([W * (x0 + xw * rnd(VIEWS, N_GAUSS)),
+                             H * (y0 + yw * rnd(VIEWS, N_GAUSS))], -1)
+        colors = rnd(N_GAUSS, 3).expand(VIEWS, -1, -1)
+        valid = torch.ones((VIEWS, N_GAUSS), dtype=torch.bool, device=dev)
+        if mode == "ellipse":
+            scales = 1.0 + 3.0 * rnd(N_GAUSS, 2)
+            opac = 0.2 + 0.75 * rnd(N_GAUSS)
+            radius = 3.0 * scales.amax(1)
+            packed = K.pack_ellipse(
+                means, scales.expand(VIEWS, -1, -1),
+                (6 * rnd(N_GAUSS) - 3).expand(VIEWS, -1),
+                opac.expand(VIEWS, -1), colors, radius.expand(VIEWS, -1))
+        else:
+            # Conic = inverse 2D covariance of sigmas 1.5-5.5 px.
+            sig = 1.5 + 4.0 * rnd(N_GAUSS, 2)
+            th = 6 * rnd(N_GAUSS) - 3
+            c, s = torch.cos(th), torch.sin(th)
+            ia, ib = 1 / sig[:, 0] ** 2, 1 / sig[:, 1] ** 2
+            conic = torch.stack([c * c * ia + s * s * ib, c * s * (ia - ib),
+                                 s * s * ia + c * c * ib], -1)
+            opac = 0.6 + 0.39 * rnd(N_GAUSS)
+            radius = 3.0 * sig.amax(1)
+            packed = K.pack_conic(means, conic.expand(VIEWS, -1, -1),
+                                  opac.expand(VIEWS, -1), colors,
+                                  radius.expand(VIEWS, -1))
+        b = R.bin_instances(packed, means, radius.expand(VIEWS, -1), valid,
+                            H, W, R.DEFAULT_TILE, R.DEFAULT_CHUNK, 16)
+        args = (b.inst, b.astarts, b.counts, b.origins, R.DEFAULT_TILE,
+                R.DEFAULT_CHUNK, mode)
+        got = K.composite_instances(*args)
+        ref = K.composite_instances_ref(*args)
+        torch.cuda.synchronize()
+        err = max(float((got[0] - ref[0]).abs().max()),
+                  float((got[1] - ref[1]).abs().max()))
+        jstop_equal = bool(torch.equal(got[2], ref[2]))
+        ms = cuda_ms(lambda: K.composite_instances(*args), iters=20, warmup=2)
+        plain_ms = cuda_ms(lambda: K.composite_instances_ref(*args), iters=2)
+        bound = kernel_bound(b.astarts, b.counts, got[2], R.DEFAULT_TILE,
+                             R.DEFAULT_CHUNK)
+        n_steps = (b.counts.long() + R.DEFAULT_CHUNK - 1) // R.DEFAULT_CHUNK
+        r = dict(mode=mode, tiles=int(b.counts.numel()),
+                 sum_counts=int(b.counts.long().sum()),
+                 overflow=int(b.overflow), max_abs_err=err,
+                 jstop_equal=jstop_equal,
+                 tiles_stopped_early=int((got[2].long() < n_steps).sum()),
+                 ms=ms, plain_ms=plain_ms, **bound)
+        print(f"kernel[{mode}]: tiles {r['tiles']} sum(counts) {r['sum_counts']} "
+              f"rows walked {r['walked_rows']} early-stopped tiles "
+              f"{r['tiles_stopped_early']} | max|kernel-plain| {err:.3g} "
+              f"(tol {TOL}) jstop equal {jstop_equal} | kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['ops'] / 1e9:.3f} GFLOP, "
+              f"{r['bytes'] / 1e6:.2f} MB) | {r['busy_tiles']} busy tiles, "
+              f"longest segment {r['max_tile_chunks']} chunks", flush=True)
+        if not err <= TOL:
+            raise AssertionError(f"{mode}: kernel disagrees with plain ({err})")
+        if mode == "conic" and not jstop_equal:
+            raise AssertionError("conic: jstop differs from the plain version")
+        if mode == "conic" and r["tiles_stopped_early"] == 0:
+            raise AssertionError("conic: no tile stopped early, so the stop "
+                                 "was not exercised")
+        if not torch.isfinite(got[0]).all() or not torch.isfinite(got[1]).all():
+            raise AssertionError(f"{mode}: non-finite kernel output")
+        results[mode] = r
+    report["kernel_phase"] = results
+    return results
+
+
+def slice_phase(report):
+    import torch
+
+    from pose_splatter_torch.config import Config
+    from pose_splatter_torch.models.pose_splatter import init_means2d_center
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.train.evaluate import (
+        _batch_metrics,
+        render_images_in_memory,
+    )
+    from pose_splatter_torch.train.loop import make_eval_step
+    from pose_splatter_torch.train.losses import total_loss
+    from pose_splatter_torch.train.trainer import build_model
+    from pose_splatter_torch.utils import stages
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import (
+        FrameSet,
+        ring_cameras,
+        synthetic_frames,
+    )
+
+    cfg = json.loads((ROOT / "configs" / "templates" / "tpu_2d.json").read_text())
+    cfg["gaussian_config"] = dict(cfg["gaussian_config"], view_anchored=True)
+    cfg.update(min_n=1024, max_n=N_GAUSS, num_unets=3, base_filters=8)
+    config = Config(cfg)
+    assert (config.render_width, config.render_height) == (W, H)
+
+    Ks, Es = ring_cameras(VIEWS, W, H, focal=800.0, radius=0.6)
+    t0 = time.perf_counter()
+    model = build_model(config, cameras=(Ks, Es), device="cuda", seed=0)
+    init_means2d_center(model.net, W, H, anchored=True)
+    torch.cuda.synchronize()
+    print(f"model: {sum(p.numel() for p in model.net.parameters())} parameters, "
+          f"crop {model.input_size}, views {model.num_cameras} (observed "
+          f"{model.observed_views}), built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
+    crop_center = grid.reshape(-1, 3).mean(0)
+    n_frames = 3
+    frames = synthetic_frames(Ks, Es, H, W, crop_center, (0.055, 0.032, 0.028),
+                              n_frames, seed=0)
+    data = FrameSet(frames, model.observed_views)
+    step = make_eval_step(model, config.img_lambda, config.ssim_lambda)
+    # Eval batch: each frame renders one observed view against its target.
+    obs_pos = np.arange(n_frames) % len(model.observed_views)
+    batch = dict(
+        mask=frames["mask"][:, model.observed_views],
+        img=frames["img"][:, model.observed_views],
+        p_3d=frames["p_3d"], angle=frames["angle"],
+        view_idx=np.asarray(model.observed_views)[obs_pos], obs_idx=obs_pos)
+
+    # Warm-up of both entry points (cuDNN algorithm choice for the U-Net and
+    # SSIM shapes, allocator) outside the counted and timed run.
+    render_images_in_memory(model, FrameSet(
+        {k: v[:1] for k, v in frames.items()}, model.observed_views))
+    step({k: v[:1] for k, v in batch.items()})
+    torch.cuda.synchronize()
+
+    # ---- the main path, with the launch counts zeroed around it ----
+    K.composite_instances.launches = 0
+    t0 = time.perf_counter()
+    rgba = render_images_in_memory(model, data)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss, metrics = step(batch)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    launches = K.composite_instances.launches
+    # ---------------------------------------------------------------
+    print(f"main path: render_images_in_memory {n_frames} frames x "
+          f"{VIEWS} views in {1e3 * t_render:.1f} ms, make_eval_step "
+          f"{n_frames} frames in {1e3 * t_eval:.1f} ms; composite_fwd "
+          f"launches {launches}", flush=True)
+    if launches <= 0:
+        raise AssertionError("the main path never launched composite_fwd")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    print(f"eval step: loss {float(loss):.6f} metrics {metrics}", flush=True)
+    if rgba.shape != (n_frames, VIEWS, H, W, 4):
+        raise AssertionError(f"rendered shape {rgba.shape}")
+    if not np.isfinite(float(loss)) or not all(np.isfinite(list(metrics.values()))):
+        raise AssertionError("non-finite eval loss or metrics")
+
+    gt = torch.as_tensor(frames["img"], device="cuda")
+    pred = torch.as_tensor(rgba, device="cuda").float() / 255.0
+    sums = _batch_metrics(gt, pred[..., :3], pred[..., 3])
+    per_cam = {k: (v / n_frames).tolist() for k, v in sums.items()}
+    print(f"per-camera metrics (rendered vs synthetic ground truth): "
+          f"{json.dumps(per_cam)}", flush=True)
+
+    # ---- per-frame stage breakdown (same model, same frames) ----
+    # Each frame's forward runs plain three times, timed whole, with the
+    # first run's launches counted, then once with the forward's own stage
+    # marks recorded (each mark synchronises, so the stages add up to more
+    # than the whole).
+    def sync_ms(t):
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    frames_out = []
+    slice_kernel = None
+    view_idx = torch.arange(VIEWS, device="cuda")
+    obs = model.observed_views[0]
+    for i in range(n_frames):
+        mask, img, p_3d, angle, _ = data.get(i)
+        runs = []
+        for r in range(3):
+            torch.cuda.synchronize()
+            before = K.composite_instances.launches
+            t_all = time.perf_counter()
+            rgb_e, alpha_e, overflow_e = model(mask, img, p_3d, angle,
+                                               view_idx, return_overflow=True)
+            runs.append(sync_ms(t_all))
+            if r == 0:
+                per_forward = K.composite_instances.launches - before
+        whole = float(np.median(runs))
+        with stages.record() as rec:
+            model(mask, img, p_3d, angle, view_idx)
+        st = dict(rec.ms)
+        g, b = rec.values["select_head"], rec.values["binning"]
+        t = time.perf_counter()
+        tl, _ = total_loss(rgb_e[obs], alpha_e[obs], model._tensor(img[0]),
+                           model._tensor(mask[0]), config.img_lambda,
+                           config.ssim_lambda)
+        float(tl)
+        st["metrics"] = sync_ms(t)
+        n_valid = int(g["valid"].sum())
+        out = dict(frame=i, whole_forward_ms=whole, whole_forward_runs_ms=runs,
+                   stages_ms=st, gaussians_valid=n_valid,
+                   gaussians_selected=int(g["valid"].numel()),
+                   overflow=int(overflow_e), instances=int(b.counts.long().sum()),
+                   kernel_launches_per_forward=per_forward, loss_view0=float(tl))
+        frames_out.append(out)
+        print(f"frame {i}: forward {whole:.2f} ms (median of "
+              f"{', '.join(f'{x:.2f}' for x in runs)}), {per_forward} "
+              f"composite_fwd launch(es) | "
+              + " ".join(f"{k} {v:.2f}" for k, v in st.items())
+              + f" ms | gaussians {n_valid}/{g['valid'].numel()} overflow "
+              f"{int(overflow_e)} instances {out['instances']} | loss(view "
+              f"{obs}) {float(tl):.5f}", flush=True)
+        if not torch.isfinite(rgb_e).all() or not torch.isfinite(alpha_e).all():
+            raise AssertionError("non-finite render")
+        if per_forward <= 0:
+            raise AssertionError("the forward never launched composite_fwd")
+        if i == 0:
+            # The kernel against its plain version on the instance arrays
+            # that the forward itself binned.
+            args = (b.inst, b.astarts, b.counts, b.origins, R.DEFAULT_TILE,
+                    R.DEFAULT_CHUNK, "ellipse")
+            rgb_t, alpha_t, jstop = K.composite_instances(*args)
+            ref = K.composite_instances_ref(*args)
+            err = max(float((rgb_t - ref[0]).abs().max()),
+                      float((alpha_t - ref[1]).abs().max()))
+            ms = cuda_ms(lambda: K.composite_instances(*args), iters=20, warmup=2)
+            plain_ms = cuda_ms(lambda: K.composite_instances_ref(*args), iters=2)
+            bound = kernel_bound(b.astarts, b.counts, jstop, R.DEFAULT_TILE,
+                                 R.DEFAULT_CHUNK)
+            # The most loaded tile alone: one block on an otherwise idle card.
+            hot = int(b.counts.argmax())
+            one = (b.inst, b.astarts[hot:hot + 1].contiguous(),
+                   b.counts[hot:hot + 1].contiguous(),
+                   b.origins[hot:hot + 1].contiguous()) + args[4:]
+            hot_ms = cuda_ms(lambda: K.composite_instances(*one), iters=20,
+                             warmup=2)
+            slice_kernel = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                longest_tile_alone_ms=hot_ms, **bound)
+            print(f"main-path composite: max|kernel-plain| {err:.3g} (tol "
+                  f"{TOL}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+                  f"{bound['busy_tiles']} of {b.counts.numel()} tiles hold "
+                  f"instances, the longest segment is "
+                  f"{bound['max_tile_chunks']} chunks and takes {hot_ms:.4f} ms "
+                  f"alone", flush=True)
+            if not err <= TOL:
+                raise AssertionError(f"main-path kernel disagrees ({err})")
+    if frames_out[0]["gaussians_valid"] < N_GAUSS:
+        raise AssertionError("selection did not reach max_n")
+    report["slice_phase"] = dict(
+        launches=launches, render_ms=1e3 * t_render, eval_step_ms=1e3 * t_eval,
+        eval_loss=float(loss), eval_metrics=metrics, per_camera=per_cam,
+        frames=frames_out, main_path_kernel=slice_kernel,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        alloc_retries=torch.cuda.memory_stats().get("num_alloc_retries", 0))
+    return launches, slice_kernel
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from pose_splatter_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
+        return 2
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    t0 = time.perf_counter()
+    lib = _build.build("composite_fwd")
+    build_s = time.perf_counter() - t0
+    log = Path(str(lib) + ".log")
+    print(f"build: composite_fwd.cu in {build_s:.1f} s -> {lib.name}", flush=True)
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    report = dict(card=card, build_s=build_s)
+    kp = kernel_phase(report)
+    launches, sk = slice_phase(report)
+
+    errs = [kp["ellipse"]["max_abs_err"], kp["conic"]["max_abs_err"],
+            sk["max_abs_err"]]
+    kernels = {"kernels": [dict(
+        name="composite_fwd", route="cuda",
+        source="pose_splatter_torch/csrc/composite_fwd.cu",
+        replaces="pose_splatter_tpu/ops/rasterize_pallas.py:425",
+        launches=launches, max_abs_err=max(errs), ms=sk["ms"],
+        plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
+        bound_by=sk["bound_by"], library_ms=None)]}
+    report["result"] = kernels
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps(kernels))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
