@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Run the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from the sources in the checkout
-(``nvcc``, at first use), then:
+(``nvcc``, one process a source, all at once), then:
 
 1. card: prints the GPU's name and power limit and the build time;
-2. kernel phase: the forward compositor on synthetic instance arrays at the
+2. kernel phase: the forward compositor (with and without its ``tbounds``
+   store) and the backward compositor on synthetic instance arrays at the
    full-width shape (6 views x 576x512, 16000 Gaussians) in both modes,
-   against its plain PyTorch version, timed with CUDA events;
-3. slice phase: the 2D view-anchored eval forward at the repository's
+   against their plain PyTorch versions, timed with CUDA events;
+3. eval slice: the 2D view-anchored eval forward at the repository's
    quality north-star configuration (``configs/templates/tpu_2d.json`` with
    ``view_anchored``: 576x512, grid 128, crop 96x80x64, 6 cameras with
    holdout views [5, 1], 3 U-Nets of base width 8, up to 16000 Gaussians)
-   with seeded random weights, over synthetic frames of an ellipsoid seen by
-   6 cameras: ``render_images_in_memory`` and ``make_eval_step`` through
-   the user-facing entry points, with the kernel's launch count read around
-   them, then a per-frame breakdown from the forward's own stage marks
-   (``pose_splatter_torch.utils.stages``) and a kernel-vs-plain check on
-   the instance arrays that the forward binned.
+   with seeded random weights (PyTorch's default initialisers, kept so the
+   scene stays comparable), over synthetic frames of an ellipsoid seen by 6
+   cameras: ``render_images_in_memory`` and ``make_eval_step`` through
+   the user-facing entry points, with the forward kernel's launch count read
+   around them, then a per-frame breakdown from the forward's own stage
+   marks (``pose_splatter_torch.utils.stages``) and a kernel-vs-plain check
+   on the instance arrays that the forward binned;
+4. train slice: ``train_from_config`` at the same configuration (fresh
+   start, lr 1e-4, img_lambda 0.5, ssim_lambda 0.1, batch 1) for K steps on
+   synthetic frames, with both kernels' launch counts read around it and
+   each step's stages recorded; then K_EXTRA unrecorded steps, timed whole
+   with the launches read around each; then the backward kernel against
+   its plain version on the last step's own instance arrays, ``tbounds``
+   and loss gradient.
 
 Prints one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -33,6 +42,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +61,23 @@ PEAK_BYTES = 3.35e12
 # T -= contrib (1). Per-row set-up and comparisons are left out, so this
 # is a floor (the kernel's loop does 27 in ellipse mode, see its source).
 OPS_PER_PAIR = 20
+# The least float32 operations the backward compositor needs per (instance,
+# pixel) pair, counted the same way. Recomputing a and T: the forward's 20
+# less the 7 rgb/alpha sums = 13. Then w = <g_rgb, rgb> + g_alpha (6); the
+# suffix S += w*contrib (2); dL/da = w*T - S/(1 - a), 1 - a kept (3); the
+# colour gradients sum(g_c*contrib) (6); the opacity's sum(e*dL/da) (2);
+# g = -a*dL/da, the chain into the quadratic form (1); its three
+# coefficients' gradients g*dx^2, g*dx*dy, g*dy^2, summed, dy^2 reused
+# (2 + 3 + 3 = 8); the mean's two gradients from dq/ddx = (P dx + Q dy) +
+# P dx and dq/ddy = Q dx + 2R dy, times g, summed (1 + 3 + 2 + 2 = 8).
+# 13 + 6 + 2 + 3 + 6 + 2 + 1 + 8 + 8 = 49. Per-row chains (from the
+# quadratic form's coefficients to cos, sin, sx, sy) are left out.
+OPS_PER_PAIR_BWD = 49
+EPS32 = 2.0 ** -24  # float32 unit roundoff
+# Train slice: steps driven through train_from_config, then steps timed
+# whole outside any recording.
+K_STEPS = 8
+K_EXTRA = 3
 
 
 def card_line() -> str:
@@ -99,6 +126,45 @@ def kernel_bound(astarts, counts, jstop, tile_shape, G):
                 max_tile_chunks=int(((counts + G - 1) // G).max()),
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def bwd_bound(inst, astarts, counts, jstop, tile_shape, G):
+    """Least time on an H100 for the backward compositor's work on these
+    inputs: the walked instance rows and their chunks' tbounds rows read
+    once, the pixel gradients (g_rgb, g_alpha) and per-tile scalars read
+    once, the instance-gradient array written once; against
+    OPS_PER_PAIR_BWD float32 operations a walked (instance, pixel) pair."""
+    import torch
+
+    P = tile_shape[0] * tile_shape[1]
+    counts = counts.long()
+    walked = int(torch.minimum(counts, jstop.long() * G).sum())
+    chunks = int(jstop.long().sum())
+    T = counts.numel()
+    nbytes = (walked * 64 + chunks * P * 4 + T * P * 16 + T * 20
+              + inst.shape[0] * 64)
+    ops = walked * P * OPS_PER_PAIR_BWD
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return dict(walked_rows=walked, walked_chunks=chunks, bytes=nbytes,
+                ops=ops, busy_tiles=int((counts > 0).sum()),
+                max_tile_chunks=int(jstop.max()),
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def bwd_error(got, ref, jstop, tile_shape, G):
+    """Largest |kernel - plain| of each gradient column over the column's
+    largest |plain| entry, and the tolerance: each entry is a sum over the
+    tile's P pixels of terms that carry a suffix sum over up to all the
+    tile's walked rows, added in another order on each side; a random walk
+    of float32 roundings over P * rows terms grows as EPS32 * sqrt(P *
+    rows), taken 4 times for the two passes and the cancellation in the
+    conic d(A, B, C) columns."""
+    P = tile_shape[0] * tile_shape[1]
+    rows = max(int(jstop.max()) * G, 1)
+    scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+    rel = float(((got - ref).abs().amax(dim=0) / scale).max())
+    return rel, 4 * EPS32 * (P * rows) ** 0.5
 
 
 # ----------------------------------------------------------------------------
@@ -187,15 +253,89 @@ def kernel_phase(report):
                                  "was not exercised")
         if not torch.isfinite(got[0]).all() or not torch.isfinite(got[1]).all():
             raise AssertionError(f"{mode}: non-finite kernel output")
+        r.update(backward_check(b, mode, gen))
         results[mode] = r
     report["kernel_phase"] = results
     return results
 
 
+def backward_check(b, mode, gen):
+    """The forward's tbounds store and the backward kernel against their
+    plain versions on binned instances ``b``, with seeded loss gradients,
+    timed with CUDA events."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+
+    tile, G = R.DEFAULT_TILE, R.DEFAULT_CHUNK
+    args = (b.inst, b.astarts, b.counts, b.origins, tile, G, mode)
+    got = K.composite_instances(*args, save_tbounds=True)
+    ref = K.composite_instances_ref(*args, save_tbounds=True)
+    torch.cuda.synchronize()
+    # The same entry T as the plain version's chunked product: float32
+    # rounding of up to ~140 chunk products of 64 factors each.
+    tb_err = float((got[3] - ref[3]).abs().max())
+    if not tb_err <= TOL or not torch.equal(got[2], ref[2]):
+        raise AssertionError(f"{mode}: tbounds differ from the plain version "
+                             f"({tb_err}) or jstop does")
+    nt, P = b.counts.numel(), tile[0] * tile[1]
+    g_rgb = torch.randn((nt, 3, P), generator=gen).cuda()
+    g_alpha = torch.randn((nt, P), generator=gen).cuda()
+    bargs = (b.inst, got[3], b.astarts, b.counts, b.origins, got[2], g_rgb,
+             g_alpha, tile, G, mode)
+    d = K.composite_instances_bwd(*bargs)
+    d_ref = K.composite_instances_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    rel, tol = bwd_error(d, d_ref, got[2], tile, G)
+    out = dict(
+        tbounds_max_abs_err=tb_err,
+        bwd_max_abs_err=float((d - d_ref).abs().max()), bwd_rel_err=rel,
+        bwd_rel_tol=tol,
+        bwd_ms=cuda_ms(lambda: K.composite_instances_bwd(*bargs), 20, 2),
+        bwd_plain_ms=cuda_ms(lambda: K.composite_instances_bwd_ref(*bargs), 2),
+        fwd_ms=cuda_ms(lambda: K.composite_instances(*args), 20, 2),
+        fwd_store_ms=cuda_ms(
+            lambda: K.composite_instances(*args, save_tbounds=True), 20, 2),
+        bwd_bound=bwd_bound(b.inst, b.astarts, b.counts, got[2], tile, G))
+    print(f"backward[{mode}]: tbounds max|kernel-plain| {tb_err:.3g} (tol "
+          f"{TOL}) | bwd max|kernel-plain| {out['bwd_max_abs_err']:.3g}, "
+          f"{rel:.3g} of each column's largest (tol {tol:.3g}) | bwd kernel "
+          f"{out['bwd_ms']:.4f} ms, plain {out['bwd_plain_ms']:.2f} ms, bound "
+          f"{out['bwd_bound']['bound_ms']:.4f} ms "
+          f"({out['bwd_bound']['bound_by']}) | fwd {out['fwd_ms']:.4f} ms, "
+          f"with the store {out['fwd_store_ms']:.4f} ms", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"{mode}: backward kernel disagrees ({rel} > {tol})")
+    if not torch.isfinite(d).all() or not float(d.abs().max()) > 0:
+        raise AssertionError(f"{mode}: backward kernel output is not finite "
+                             "or all zero")
+    return out
+
+
+def torch_default_weights(net, seed: int = 0):
+    """The eval slice's random weights: PyTorch's default initialisers drawn
+    on the CPU from ``seed`` in construction order. They are the weights the
+    model was built with before its layers took Flax's initialisers, so the
+    eval slice renders the scene it always rendered and its numbers stay
+    comparable across versions of the port."""
+    import copy
+
+    import torch
+
+    cpu = copy.deepcopy(net).cpu()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        for mod in cpu.modules():
+            if isinstance(mod, (torch.nn.Conv3d, torch.nn.ConvTranspose3d,
+                                torch.nn.Linear)):
+                mod.reset_parameters()
+    net.load_state_dict(cpu.state_dict())
+
+
 def slice_phase(report):
     import torch
 
-    from pose_splatter_torch.config import Config
     from pose_splatter_torch.models.pose_splatter import init_means2d_center
     from pose_splatter_torch.ops import rasterize as R
     from pose_splatter_torch.ops import rasterize_kernels as K
@@ -214,15 +354,11 @@ def slice_phase(report):
         synthetic_frames,
     )
 
-    cfg = json.loads((ROOT / "configs" / "templates" / "tpu_2d.json").read_text())
-    cfg["gaussian_config"] = dict(cfg["gaussian_config"], view_anchored=True)
-    cfg.update(min_n=1024, max_n=N_GAUSS, num_unets=3, base_filters=8)
-    config = Config(cfg)
-    assert (config.render_width, config.render_height) == (W, H)
-
+    config = north_star_config()
     Ks, Es = ring_cameras(VIEWS, W, H, focal=800.0, radius=0.6)
     t0 = time.perf_counter()
     model = build_model(config, cameras=(Ks, Es), device="cuda", seed=0)
+    torch_default_weights(model.net)
     init_means2d_center(model.net, W, H, anchored=True)
     torch.cuda.synchronize()
     print(f"model: {sum(p.numel() for p in model.net.parameters())} parameters, "
@@ -313,7 +449,7 @@ def slice_phase(report):
         with stages.record() as rec:
             model(mask, img, p_3d, angle, view_idx)
         st = dict(rec.ms)
-        g, b = rec.values["select_head"], rec.values["binning"]
+        g, b = rec.values["select_head"][-1], rec.values["binning"][-1]
         t = time.perf_counter()
         tl, _ = total_loss(rgb_e[obs], alpha_e[obs], model._tensor(img[0]),
                            model._tensor(mask[0]), config.img_lambda,
@@ -380,6 +516,190 @@ def slice_phase(report):
     return launches, slice_kernel
 
 
+def north_star_config(**overrides):
+    from pose_splatter_torch.config import Config
+
+    cfg = json.loads((ROOT / "configs" / "templates" / "tpu_2d.json").read_text())
+    cfg["gaussian_config"] = dict(cfg["gaussian_config"], view_anchored=True)
+    cfg.update(min_n=1024, max_n=N_GAUSS, num_unets=3, base_filters=8)
+    cfg.update(overrides)
+    config = Config(cfg)
+    assert (config.render_width, config.render_height) == (W, H)
+    return config
+
+
+FWD_STAGES = ("carve", "unets", "select_head", "binning", "kernel", "untile",
+              "loss")
+BWD_STAGES = ("loss_bwd", "kernel_bwd", "backward")
+
+
+def train_phase(report):
+    """train_from_config at the north-star configuration, then the backward
+    kernel against its plain version on a step's own arrays."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.train.loop import make_train_step
+    from pose_splatter_torch.train.trainer import train_from_config
+    from pose_splatter_torch.utils import stages
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import (
+        FrameSet,
+        ring_cameras,
+        synthetic_frames,
+    )
+    from pose_splatter_torch.data.dataset import FrameLoader
+
+    out_dir = ROOT / "build" / "train"  # checkpoints, if a run saves any
+    config = north_star_config(project_directory=str(out_dir))
+    assert (config.lr, config.img_lambda, config.ssim_lambda) == (1e-4, 0.5, 0.1)
+    Ks, Es = ring_cameras(VIEWS, W, H, focal=800.0, radius=0.6)
+    grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
+    t0 = time.perf_counter()
+    frames = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0),
+                              (0.055, 0.032, 0.028), K_STEPS + K_EXTRA, seed=1)
+    observed = [v for v in range(VIEWS) if v not in config.holdout_views]
+    train = FrameSet(frames, observed, seed=2)
+    valid = FrameSet({k: v[:2] for k, v in frames.items()}, observed,
+                     split="valid")
+    print(f"train data: {K_STEPS + K_EXTRA} synthetic frames x {VIEWS} views "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, with the launch counts zeroed around it ----
+    K.composite_instances.launches = 0
+    K.composite_instances_bwd.launches = 0
+    t0 = time.perf_counter()
+    with stages.record() as rec:
+        state, losses, _ = train_from_config(
+            config, epochs=1, max_batches=K_STEPS, batch_size=1, seed=0,
+            device="cuda", cameras=(Ks, Es), datasets=(train, valid))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = dict(composite_fwd=K.composite_instances.launches,
+                    composite_bwd=K.composite_instances_bwd.launches)
+    # ---------------------------------------------------------------
+    sp = rec.spans
+    n = len(sp["optimizer"])
+    steps = []
+    for i in range(n):
+        st = {k: sp[k][i] for k in ("data",) + FWD_STAGES + BWD_STAGES
+              + ("optimizer",)}
+        fwd = sum(st[k] for k in FWD_STAGES)
+        bwd = sum(st[k] for k in BWD_STAGES)
+        steps.append(dict(
+            step=i, stages_ms=st, forward_ms=fwd, backward_ms=bwd,
+            step_ms=fwd + bwd + st["optimizer"],
+            loss=rec.values["loss"][i].item(),
+            overflow=float(rec.values["optimizer"][i]["overflow"]),
+            gaussians=int(rec.values["select_head"][i]["valid"].sum())))
+        print(f"train step {i}: loss {steps[-1]['loss']:.6f} | forward "
+              f"{fwd:.2f} ms, backward {bwd:.2f} ms, optimizer "
+              f"{st['optimizer']:.2f} ms | "
+              + " ".join(f"{k} {v:.2f}" for k, v in st.items())
+              + f" | gaussians {steps[-1]['gaussians']} overflow "
+              f"{steps[-1]['overflow']:.0f}", flush=True)
+    warm = steps[2:]  # cuDNN algorithm choice and the allocator settle
+    med = {k: float(np.median([s[k] for s in warm]))
+           for k in ("step_ms", "forward_ms", "backward_ms")}
+    med_stages = {k: float(np.median([s["stages_ms"][k] for s in warm]))
+                  for k in warm[0]["stages_ms"]}
+    print(f"main path: train_from_config {n} steps in {t_train:.2f} s; "
+          f"recorded steps after warm-up (median of {len(warm)}): step "
+          f"{med['step_ms']:.2f} ms = forward {med['forward_ms']:.2f} + "
+          f"backward {med['backward_ms']:.2f} + optimizer | stage medians "
+          + " ".join(f"{k} {v:.2f}" for k, v in med_stages.items())
+          + f" ms; launches {launches}", flush=True)
+    if n != K_STEPS or state.step != K_STEPS:
+        raise AssertionError(f"{n} steps recorded, state at {state.step}")
+    if min(launches.values()) < K_STEPS:
+        raise AssertionError(f"a kernel was not launched every step: {launches}")
+    if not all(np.isfinite(s["loss"]) for s in steps) or not np.isfinite(
+            losses[-1]).all():
+        raise AssertionError("non-finite training loss")
+    bad = [k for k, p in state.model.net.named_parameters()
+           if p.grad is not None and not torch.isfinite(p.grad).all()]
+    if bad:
+        raise AssertionError(f"non-finite gradients: {bad[:5]}")
+
+    # ---- steps timed whole, launches read around each ----
+    model = state.model
+    step_fn = make_train_step(model, state.optimizer, config.img_lambda,
+                              config.ssim_lambda)
+    batches = iter(FrameLoader(train, batch_size=1, shuffle=False, prefetch=0))
+    extra = []
+    for _ in range(K_EXTRA):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        before = (K.composite_instances.launches,
+                  K.composite_instances_bwd.launches)
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        extra.append(dict(step_ms=ms, loss=float(m["total"]),
+                          fwd_launches=K.composite_instances.launches - before[0],
+                          bwd_launches=K.composite_instances_bwd.launches - before[1]))
+    print("unrecorded steps: " + "; ".join(
+        f"{e['step_ms']:.2f} ms, loss {e['loss']:.6f}, composite_fwd "
+        f"{e['fwd_launches']} / composite_bwd {e['bwd_launches']} launch(es)"
+        for e in extra), flush=True)
+    if any(e["fwd_launches"] != 1 or e["bwd_launches"] != 1 for e in extra):
+        raise AssertionError("a train step did not launch each kernel once")
+
+    # ---- the backward kernel on the last recorded step's own arrays ----
+    bargs = rec.values["kernel_bwd"][-1]
+    inst, tbounds, astarts, counts, origins, jstop = bargs[:6]
+    tile, G = bargs[8], bargs[9]
+    d = K.composite_instances_bwd(*bargs)
+    d_ref = K.composite_instances_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    rel, tol = bwd_error(d, d_ref, jstop, tile, G)
+    ms = cuda_ms(lambda: K.composite_instances_bwd(*bargs), 20, 2)
+    plain_ms = cuda_ms(lambda: K.composite_instances_bwd_ref(*bargs), 2)
+    bound = bwd_bound(inst, astarts, counts, jstop, tile, G)
+    hot = int(jstop.argmax())
+    one = (inst, tbounds, astarts[hot:hot + 1].contiguous(),
+           counts[hot:hot + 1].contiguous(), origins[hot:hot + 1].contiguous(),
+           jstop[hot:hot + 1].contiguous(), bargs[6][hot:hot + 1].contiguous(),
+           bargs[7][hot:hot + 1].contiguous()) + tuple(bargs[8:])
+    hot_ms = cuda_ms(lambda: K.composite_instances_bwd(*one), 20, 2)
+    fargs = (inst, astarts, counts, origins, tile, G, bargs[10])
+    fwd_ms = cuda_ms(lambda: K.composite_instances(*fargs), 20, 2)
+    fwd_store_ms = cuda_ms(
+        lambda: K.composite_instances(*fargs, save_tbounds=True), 20, 2)
+    fwd_plain_ms = cuda_ms(lambda: K.composite_instances_ref(*fargs), 2)
+    main_kernel = dict(max_abs_err=float((d - d_ref).abs().max()), rel_err=rel,
+                       rel_tol=tol, ms=ms, plain_ms=plain_ms,
+                       longest_tile_alone_ms=hot_ms, fwd_ms=fwd_ms,
+                       fwd_store_ms=fwd_store_ms, fwd_plain_ms=fwd_plain_ms,
+                       fwd_bound=kernel_bound(astarts, counts, jstop, tile, G),
+                       **bound)
+    print(f"main-path composite_bwd: max|kernel-plain| "
+          f"{main_kernel['max_abs_err']:.3g}, {rel:.3g} of each column's "
+          f"largest (tol {tol:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+          f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{bound['ops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB); "
+          f"{bound['busy_tiles']} of {counts.numel()} tiles hold instances, "
+          f"the longest walk is {bound['max_tile_chunks']} chunks and takes "
+          f"{hot_ms:.4f} ms alone | composite_fwd on the same instances "
+          f"{fwd_ms:.4f} ms, with the store {fwd_store_ms:.4f} ms, plain "
+          f"{fwd_plain_ms:.2f} ms", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"main-path backward kernel disagrees ({rel})")
+    if max(s["gaussians"] for s in steps) < N_GAUSS:
+        raise AssertionError("selection never reached max_n")
+    report["train_phase"] = dict(
+        launches=launches, train_from_config_s=t_train, steps=steps,
+        median_after_warmup=med, stage_medians_ms=med_stages,
+        unrecorded_steps=extra, epoch_losses=losses,
+        main_path_kernel=main_kernel,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"train peak device memory {report['train_phase']['peak_memory_gb']:.2f}"
+          f" GB", flush=True)
+    return launches, main_kernel
+
+
 def main() -> int:
     try:
         import torch
@@ -398,29 +718,42 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
+    names = ("composite_fwd", "composite_bwd")
     t0 = time.perf_counter()
-    lib = _build.build("composite_fwd")
+    with ThreadPoolExecutor(len(names)) as ex:  # one nvcc a source, at once
+        libs = dict(zip(names, ex.map(_build.build, names)))
     build_s = time.perf_counter() - t0
-    log = Path(str(lib) + ".log")
-    print(f"build: composite_fwd.cu in {build_s:.1f} s -> {lib.name}", flush=True)
-    if log.exists():
-        for line in log.read_text().splitlines():
+    print(f"build: {', '.join(n + '.cu' for n in names)} in {build_s:.1f} s",
+          flush=True)
+    for name, lib in libs.items():
+        log = Path(str(lib) + ".log")
+        for line in log.read_text().splitlines() if log.exists() else []:
             if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}")
+                print(f"  ptxas {name}: {line.strip()}")
 
     report = dict(card=card, build_s=build_s)
     kp = kernel_phase(report)
-    launches, sk = slice_phase(report)
+    eval_launches, sk = slice_phase(report)
+    train_launches, tk = train_phase(report)
 
-    errs = [kp["ellipse"]["max_abs_err"], kp["conic"]["max_abs_err"],
-            sk["max_abs_err"]]
-    kernels = {"kernels": [dict(
-        name="composite_fwd", route="cuda",
-        source="pose_splatter_torch/csrc/composite_fwd.cu",
-        replaces="pose_splatter_tpu/ops/rasterize_pallas.py:425",
-        launches=launches, max_abs_err=max(errs), ms=sk["ms"],
-        plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
-        bound_by=sk["bound_by"], library_ms=None)]}
+    fwd_errs = [kp[m]["max_abs_err"] for m in kp] + [
+        kp[m]["tbounds_max_abs_err"] for m in kp] + [sk["max_abs_err"]]
+    bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [tk["max_abs_err"]]
+    kernels = {"kernels": [
+        dict(name="composite_fwd", route="cuda",
+             source="pose_splatter_torch/csrc/composite_fwd.cu",
+             replaces="pose_splatter_tpu/ops/rasterize_pallas.py:425",
+             launches=train_launches["composite_fwd"],
+             launches_eval_path=eval_launches, max_abs_err=max(fwd_errs),
+             ms=sk["ms"], plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
+             bound_by=sk["bound_by"], library_ms=None),
+        dict(name="composite_bwd", route="cuda",
+             source="pose_splatter_torch/csrc/composite_bwd.cu",
+             replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",
+             launches=train_launches["composite_bwd"],
+             max_abs_err=max(bwd_errs), ms=tk["ms"], plain_ms=tk["plain_ms"],
+             bound_ms=tk["bound_ms"], bound_by=tk["bound_by"],
+             library_ms=None)]}
     report["result"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -52,7 +52,6 @@ def _batch_norm(p: Mapping, s: Mapping, prefix: str,
     sd[f"{prefix}.bias"] = _t(p["bias"])
     sd[f"{prefix}.running_mean"] = _t(s["mean"])
     sd[f"{prefix}.running_var"] = _t(s["var"])
-    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
 
 def _unet(p: Mapping, s: Mapping, prefix: str, sd: Dict[str, torch.Tensor]) -> None:

@@ -4,14 +4,19 @@
 // in pose_splatter_tpu/ops/rasterize_pallas.py: front-to-back alpha
 // compositing of each pixel tile over its own contiguous segment of
 // instance rows, in input order (2D "ellipse" mode) or depth order (3D
-// "conic" mode). The chunk-entry transmittance store (`tbounds`) serves
-// the backward and comes with it in a later change.
+// "conic" mode). With a `tbounds` pointer it also stores each walked
+// chunk's entry transmittance for the backward (csrc/composite_bwd.cu).
 //
 // Layout. `inst` is [n_rows, 16] float32: one 64-byte row per
 // Gaussian-by-tile instance (the TPU's 128-lane row padding existed only
 // for its DMA alignment). Tile t owns rows [astarts[t], astarts[t] +
 // counts[t]); `origins[t]` = (y0, x0). Outputs: rgb [T, 3, P],
 // alpha [T, P], jstop [T] (chunks of G rows walked), P = th * tw.
+// Optional tbounds [n_rows / G, P]: before walking chunk j of tile t, the
+// kernel writes that chunk's entry T of every pixel to row
+// astarts[t] / G + j (astarts are multiples of G). The TPU's 8-sublane
+// padding of that row is dropped. Unwalked rows are left as they are. A
+// null pointer skips the store, so the eval path pays nothing for it.
 //   ellipse: 0 mean_x, 1 mean_y, 2 cos, 3 sin, 4 sx, 5 sy, 6 opacity, 7..9 rgb
 //   conic:   0 mean_x, 1 mean_y, 2 A, 3 B, 4 C, 6 opacity, 7..9 rgb
 // Ellipse mode evaluates integer pixel coordinates with no clamp, skip or
@@ -59,7 +64,8 @@ composite_fwd_kernel(const float* __restrict__ inst, long long n_rows,
                      const int* __restrict__ counts,
                      const int* __restrict__ origins,
                      float* __restrict__ rgb, float* __restrict__ alpha,
-                     int* __restrict__ jstop, int tw, int P, int G) {
+                     int* __restrict__ jstop, float* __restrict__ tbounds,
+                     int tw, int P, int G) {
   constexpr float kPixelOffset = kConic ? 0.5f : 0.0f;
   extern __shared__ float4 chunk4[];  // G rows x 16 floats
   const float* chunk = reinterpret_cast<const float*>(chunk4);
@@ -93,6 +99,14 @@ composite_fwd_kernel(const float* __restrict__ inst, long long n_rows,
     const long long row0 = start + static_cast<long long>(j) * G;
     const int nrows = static_cast<int>(min(static_cast<long long>(G),
                                            count - static_cast<long long>(j) * G));
+    if (tbounds != nullptr) {
+      float* tb = tbounds + (row0 / G) * P;
+#pragma unroll
+      for (int k = 0; k < kPixPerThread; ++k) {
+        const int p = threadIdx.x + k * kThreads;
+        if (p < P) tb[p] = t_in[k];
+      }
+    }
     __syncthreads();  // the previous chunk has been consumed
     const float4* src = reinterpret_cast<const float4*>(inst + row0 * kFeat);
     for (int i = threadIdx.x; i < nrows * (kFeat / 4); i += kThreads) {
@@ -187,11 +201,12 @@ composite_fwd_kernel(const float* __restrict__ inst, long long n_rows,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
+// `tbounds` may be null (no store).
 extern "C" int composite_fwd(const float* inst, long long n_rows,
                              const int* astarts, const int* counts,
                              const int* origins, float* rgb, float* alpha,
-                             int* jstop, int n_tiles, int th, int tw, int G,
-                             int conic, void* stream) {
+                             int* jstop, float* tbounds, int n_tiles, int th,
+                             int tw, int G, int conic, void* stream) {
   const int P = th * tw;
   if (n_tiles < 0 || th <= 0 || tw <= 0 || P > kThreads * kPixPerThread ||
       G <= 0 || static_cast<size_t>(G) * kFeat * sizeof(float) > 48 * 1024) {
@@ -202,10 +217,12 @@ extern "C" int composite_fwd(const float* inst, long long n_rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (conic) {
     composite_fwd_kernel<true><<<n_tiles, kThreads, smem, s>>>(
-        inst, n_rows, astarts, counts, origins, rgb, alpha, jstop, tw, P, G);
+        inst, n_rows, astarts, counts, origins, rgb, alpha, jstop, tbounds, tw,
+        P, G);
   } else {
     composite_fwd_kernel<false><<<n_tiles, kThreads, smem, s>>>(
-        inst, n_rows, astarts, counts, origins, rgb, alpha, jstop, tw, P, G);
+        inst, n_rows, astarts, counts, origins, rgb, alpha, jstop, tbounds, tw,
+        P, G);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,12 @@
 """PoseSplatter: feed-forward Gaussian splatting from multi-view silhouettes.
 
 Counterpart of ``pose_splatter_tpu/models/pose_splatter.py`` for the 2D
-eval forward:
+forward, in eval and train mode:
 
     carve → residual 3D U-Nets → Gaussian selection → per-voxel MLP head →
     (view-anchored) projection → 2D rasterization.
 
-The 3D Gaussian mode and the training forward come in later changes.
+The 3D Gaussian mode comes in a later change.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pose_splatter_torch.models.unet3d import Unet3D
+from pose_splatter_torch.models.unet3d import NewStats, Unet3D, flax_init_
 from pose_splatter_torch.ops.carving import carve_volume
 from pose_splatter_torch.ops.rasterize import rasterize_2d
 from pose_splatter_torch.utils import stages
@@ -93,6 +93,17 @@ def select_gaussians(
                              mask_threshold=mt_t)
 
 
+def take_rows_unique(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along rows, for UNIQUE indices (``pose_splatter.py:84-107``).
+
+    The JAX function gives the gather a scatter-SET adjoint. Here the
+    gather's own backward is a scatter-ADD (``index_add_``); with unique
+    indices no two rows meet, so it computes the same gradient, and on the
+    card no two atomics hit one address, so it is deterministic. Only top-k
+    indices, unique by construction, may come here."""
+    return x.index_select(0, idx)
+
+
 class PoseSplatterNet(nn.Module):
     """Trainable parameters: U-Net stack, Gaussian MLP head, scale offset.
     Module names follow the Flax module so the weight bridge is a rename."""
@@ -114,19 +125,36 @@ class PoseSplatterNet(nn.Module):
                                      input_size=input_size)
         self.head1 = nn.Linear(out_channels, 128)
         self.head2 = nn.Linear(128, num_gaussian_params)
+        flax_init_(self.head1)
+        flax_init_(self.head2)
         self.scale = nn.Parameter(torch.full((1,), -5.5))
 
-    def process_volume(self, volume: torch.Tensor) -> torch.Tensor:
-        """volume [1, n1, n2, n3, in_ch] (NDHWC) → [out_ch, n1*n2*n3]."""
+    def process_volume(self, volume: torch.Tensor,
+                       new_stats: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> torch.Tensor:
+        """volume [1, n1, n2, n3, in_ch] (NDHWC) → [out_ch, n1*n2*n3].
+
+        Eval mode reads the running BN statistics. Given a ``new_stats``
+        dict, it runs in train mode (batch statistics, Flax's
+        ``mutable=["batch_stats"]``) and fills the dict with the updated
+        running statistics under their buffer names; the buffers themselves
+        are not written."""
         if self.ablation:
             v = volume[0]
             pad = torch.zeros(v.shape[:-1] + (self.out_channels - self.in_channels,),
                               dtype=v.dtype, device=v.device)
             return torch.cat([v, pad], -1).reshape(-1, self.out_channels).T
+        collect: Optional[NewStats] = None if new_stats is None else {}
         v = volume.permute(0, 4, 1, 2, 3)  # NCDHW
         for unet in self.unets:
-            v = v + unet(v)
-        v = self.final_unet(v)
+            v = v + unet(v, collect)
+        v = self.final_unet(v, collect)
+        if collect:
+            for name, mod in self.named_modules():
+                if mod in collect:
+                    mean, var = collect[mod]
+                    new_stats[f"{name}.running_mean"] = mean
+                    new_stats[f"{name}.running_var"] = var
         return v[0].reshape(self.out_channels, -1)
 
     def gaussian_head(self, feats: torch.Tensor) -> torch.Tensor:
@@ -148,7 +176,7 @@ def init_means2d_center(net: PoseSplatterNet, W: int, H: int,
 
 
 class PoseSplatter(nn.Module):
-    """Cameras, voxel grid and the net, with the 2D eval forward.
+    """Cameras, voxel grid and the net, with the 2D forward.
 
     Built in eval mode on ``device`` (default ``"cuda"``; raises without a
     CUDA device). Weights are initialized from ``seed`` without touching
@@ -269,7 +297,7 @@ class PoseSplatter(nn.Module):
         sel = select_gaussians(
             vol_flat[0], self.min_n, self.max_n, self.prob_threshold,
             self.mask_threshold, self.mask_threshold_delta)
-        feats = vol_flat[:, sel.indices].T  # [max_n, out_ch]
+        feats = take_rows_unique(vol_flat.T, sel.indices)  # [max_n, out_ch]
         net_out = self.net.gaussian_head(feats)
 
         pt = self.prob_threshold
@@ -318,20 +346,35 @@ class PoseSplatter(nn.Module):
         return rgb, alpha, overflow
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def forward(self, mask, img, p_3d, angle, view_idx,
+    def forward(self, mask, img, p_3d, angle, view_idx, train: bool = False,
                 return_overflow: bool = False):
-        """Eval forward for one frame (``pose_splatter.py:529-595``).
+        """Forward for one frame (``pose_splatter.py:529-595``).
 
         mask [C',H,W]; img [C',H,W,3] (observed views, channel-last);
-        p_3d [3]; angle scalar; view_idx int or [B] ints. Returns rgb
-        [B,H,W,3], alpha [B,H,W] (+ overflow [] if requested).
+        p_3d [3]; angle scalar; view_idx int or [B] ints.
+
+        Eval (the default): no graph, BN on the running statistics; returns
+        rgb [B,H,W,3], alpha [B,H,W] (+ overflow [] if requested).
+
+        ``train=True``: the graph for the backward, BN on batch statistics;
+        returns rgb, alpha, the updated running statistics (a dict by
+        buffer name; the buffers are not written) and the overflow, as the
+        JAX forward with ``mutable=["batch_stats"]`` does.
         """
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet")
+        if train:
+            return self._forward(mask, img, p_3d, angle, view_idx, {})
+        with torch.no_grad():
+            rgb, alpha, _, overflow = self._forward(mask, img, p_3d, angle,
+                                                    view_idx, None)
+        if return_overflow:
+            return rgb, alpha, overflow
+        return rgb, alpha
+
+    def _forward(self, mask, img, p_3d, angle, view_idx, new_stats):
         volume = self.carve(mask, img, p_3d, angle)  # [4,n1,n2,n3]
         stages.mark("carve")
-        vol_flat = self.net.process_volume(volume.permute(1, 2, 3, 0)[None])
+        vol_flat = self.net.process_volume(volume.permute(1, 2, 3, 0)[None],
+                                           new_stats)
         stages.mark("unets")
         g = self.gaussians_from_volume(vol_flat)
         if "anchor_means" in g:
@@ -340,6 +383,4 @@ class PoseSplatter(nn.Module):
             g["anchor_means"] = g["anchor_means"] @ rot.T + self._tensor(p_3d)
         stages.mark("select_head", g)
         rgb, alpha, overflow = self.render(g, view_idx)
-        if return_overflow:
-            return rgb, alpha, overflow
-        return rgb, alpha
+        return rgb, alpha, new_stats, overflow

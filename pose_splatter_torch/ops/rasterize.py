@@ -14,8 +14,13 @@ Two modes:
   ``"pallas"`` mode. Gaussians are binned by their ``sigma_cutoff`` circle
   into (8, 128) pixel tiles, all cameras folded into one tile axis, and
   composited by :func:`~pose_splatter_torch.ops.rasterize_kernels.
-  composite_instances` (the CUDA kernel on the card, its plain version on
-  the CPU).
+  composite_with_grad` (the CUDA kernels on the card, their plain versions
+  on the CPU). It is differentiable end to end: pack, gather, composite,
+  untile and background. The binning itself (tile spans from the centres
+  and radii) is integer work and carries no gradient.
+
+``"global"`` is differentiated by autograd through its cumprod scan; it is
+a test oracle.
 
 The tile shape is part of the result in ``"kernel"`` mode: an instance is
 evaluated on every pixel of every tile its circle touches, with no cutoff
@@ -32,7 +37,7 @@ import torch
 from pose_splatter_torch.ops.rasterize_kernels import (
     DEFAULT_EXPAND,
     _build_instances,
-    composite_instances,
+    composite_with_grad,
     gather_instances,
     instance_rows,
     pack_ellipse,
@@ -129,7 +134,8 @@ def bin_instances(packed, center, radius, valid, height: int, width: int,
     # Zero-sanitize invalid rows: zero opacity keeps them inert.
     packed = torch.where(valid[..., None], packed, torch.zeros_like(packed))
     dest, src, astarts, counts, overflow = _build_instances(
-        center, radius, valid, n_ty, n_tx, tile_shape, expand, chunk, mcap)
+        center.detach(), radius.detach(), valid, n_ty, n_tx, tile_shape,
+        expand, chunk, mcap)
     inst = gather_instances(packed, dest, src, mcap)  # [B, mcap, 16]
     offs = (torch.arange(B, dtype=torch.int32, device=packed.device)
             * mcap)[:, None]
@@ -162,7 +168,7 @@ def _composite_instances(packed, center, radius, valid, mode: str,
     b = bin_instances(packed, center, radius, valid, height, width,
                       tile_shape, chunk, expand)
     stages.mark("binning", b)
-    rgb_t, alpha_t, _ = composite_instances(
+    rgb_t, alpha_t = composite_with_grad(
         b.inst, b.astarts, b.counts, b.origins, tile_shape, chunk, mode)
     stages.mark("kernel")
     rgb, alpha = untile(rgb_t, alpha_t, packed.shape[0], b.n_ty, b.n_tx,

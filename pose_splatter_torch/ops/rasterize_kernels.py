@@ -1,5 +1,5 @@
-"""Instance binning and the forward compositor (counterpart of
-``pose_splatter_tpu/ops/rasterize_pallas.py``).
+"""Instance binning and the forward and backward compositors (counterpart
+of ``pose_splatter_tpu/ops/rasterize_pallas.py``).
 
 Host side (plain PyTorch): each Gaussian is duplicated once per pixel tile
 its binning circle touches, and the copies are laid out in one flat array,
@@ -7,11 +7,17 @@ grouped by tile in compositing order, each tile's segment padded to a
 multiple of G rows (``_build_instances``, ``gather_instances``). Two finite
 capacities are truncated and COUNTED, never silent: Gaussians spanning more
 than ``expand`` tiles, and segment rows past the array's ``mcap`` rows.
+``gather_instances``' backward reduces instance-row gradients back onto the
+Gaussians with a gather, as the JAX package's custom VJP does.
 
-Device side: :func:`composite_instances` walks each tile's segment. On a
-CUDA tensor it launches the hand-written kernel ``csrc/composite_fwd.cu``;
-on a CPU tensor it runs :func:`composite_instances_ref`, the plain PyTorch
-version of the same chunk walk. There is no fallback between the two.
+Device side: :func:`composite_instances` walks each tile's segment and can
+store each chunk's entry transmittance; :func:`composite_instances_bwd`
+walks the segments back to front from those stores and writes each
+instance row's gradient. On a CUDA tensor each launches its hand-written
+kernel (``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``); on a CPU
+tensor it runs its plain PyTorch version (``composite_instances_ref``,
+``composite_instances_bwd_ref``). There is no fallback between the two.
+:func:`composite_with_grad` joins them into an autograd function.
 
 Feature packing (16 float32 columns per row):
     conic / 3D:   0 mean_x  1 mean_y  2 conic_a  3 conic_b  4 conic_c
@@ -26,6 +32,8 @@ import ctypes
 from typing import Tuple
 
 import torch
+
+from pose_splatter_torch.utils import stages
 
 ALPHA_CLAMP = 0.999
 ALPHA_SKIP = 1.0 / 255.0
@@ -162,6 +170,35 @@ def _build_instances(center, radius, valid, n_ty: int, n_tx: int,
             overflow_span + overflow_cap)
 
 
+class _GatherInstances(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, dest, src, mcap):
+        B, N, nf = packed.shape
+        M = dest.shape[1]
+        dev = packed.device
+        keep = dest < mcap
+        idx = torch.where(keep, dest, mcap + torch.arange(M, device=dev))
+        inv = torch.full((B, mcap + M), N, dtype=torch.long, device=dev)
+        inv.scatter_(1, idx, src)
+        inv = inv[:, :mcap]
+        padded = torch.cat(
+            [packed, torch.zeros((B, 1, nf), dtype=packed.dtype, device=dev)], 1)
+        ctx.save_for_backward(dest)
+        ctx.mcap, ctx.n = mcap, N
+        return torch.gather(padded, 1, inv[..., None].expand(-1, -1, nf))
+
+    @staticmethod
+    def backward(ctx, dinst):
+        (dest,) = ctx.saved_tensors
+        B, nf = dinst.shape[0], dinst.shape[-1]
+        dpad = torch.cat([dinst, torch.zeros((B, 1, nf), dtype=dinst.dtype,
+                                             device=dinst.device)], 1)
+        rows = torch.where(dest < ctx.mcap, dest, torch.full_like(dest, ctx.mcap))
+        full = torch.gather(dpad, 1, rows[..., None].expand(-1, -1, nf))
+        # Slots are laid out (Gaussian, e): sum each Gaussian's slots.
+        return full.reshape(B, ctx.n, -1, nf).sum(2), None, None, None
+
+
 def gather_instances(packed: torch.Tensor, dest: torch.Tensor,
                      src: torch.Tensor, mcap: int) -> torch.Tensor:
     """[B,N,F] packed Gaussians → [B,mcap,F] instance arrays (padding rows
@@ -171,18 +208,14 @@ def gather_instances(packed: torch.Tensor, dest: torch.Tensor,
     The slot map is inverted with one scatter whose indices are unique and
     in range: each dropped slot k writes its own dump column ``mcap + k``,
     which is cut off afterwards. Then the rows are gathered.
+
+    Backward (``rasterize_pallas.py:306-324``): ``dpacked[n] = Σ_e
+    dinst[dest[n, e]]``, a gather with dead slots reading an appended zero
+    row, then a sum over each Gaussian's ``expand`` slots. ``torch.gather``'s
+    own backward would be a scatter-add with atomics over duplicate
+    indices, whose order on the card changes from run to run.
     """
-    B, N, nf = packed.shape
-    M = dest.shape[1]
-    dev = packed.device
-    keep = dest < mcap
-    idx = torch.where(keep, dest, mcap + torch.arange(M, device=dev))
-    inv = torch.full((B, mcap + M), N, dtype=torch.long, device=dev)
-    inv.scatter_(1, idx, src)
-    inv = inv[:, :mcap]
-    padded = torch.cat(
-        [packed, torch.zeros((B, 1, nf), dtype=packed.dtype, device=dev)], 1)
-    return torch.gather(padded, 1, inv[..., None].expand(-1, -1, nf))
+    return _GatherInstances.apply(packed, dest, src, mcap)
 
 
 # ----------------------------------------------------------------------------
@@ -190,41 +223,56 @@ def gather_instances(packed: torch.Tensor, dest: torch.Tensor,
 # ----------------------------------------------------------------------------
 
 def _chunk_alpha(mode: str, f: torch.Tensor, xs: torch.Tensor,
-                 ys: torch.Tensor, rowmask: torch.Tensor) -> torch.Tensor:
-    """Alpha [A,G,P] for chunks f [A,G,16] at pixels xs, ys [A,1,P]."""
+                 ys: torch.Tensor, rowmask: torch.Tensor):
+    """Alpha [A,G,P] for chunks f [A,G,16] at pixels xs, ys [A,1,P], and
+    what the backward needs of it (``rasterize_pallas.py:341-376``)."""
     dx = xs - f[..., 0:1]
     dy = ys - f[..., 1:2]
     opacity = f[..., 6:7]
     if mode == "conic":
         A, B, C = f[..., 2:3], f[..., 3:4], f[..., 4:5]
         sigma = 0.5 * (A * dx * dx + C * dy * dy) + B * dx * dy
-        raw = opacity * torch.exp(-sigma)
+        e = torch.exp(-sigma)
+        raw = opacity * e
         a = torch.clamp(raw, max=ALPHA_CLAMP)
         live = (sigma >= 0) & (raw >= ALPHA_SKIP) & rowmask
-        return torch.where(live, a, torch.zeros_like(a))
+        flow = live & (raw < ALPHA_CLAMP)  # the gradient passes the clamp
+        return torch.where(live, a, torch.zeros_like(a)), (dx, dy, e, raw, flow)
     c, s = f[..., 2:3], f[..., 3:4]
     sx, sy = f[..., 4:5], f[..., 5:6]
     u = c * dx + s * dy
     v = -s * dx + c * dy
     sx2 = 2.0 * sx * sx + 1e-8
     sy2 = 2.0 * sy * sy + 1e-8
-    a = opacity * torch.exp(-(u * u / sx2 + v * v / sy2))
-    return torch.where(rowmask, a, torch.zeros_like(a))
+    e = torch.exp(-(u * u / sx2 + v * v / sy2))
+    a = torch.where(rowmask, opacity * e, torch.zeros_like(e))
+    return a, (dx, dy, u, v, e, sx2, sy2)
+
+
+def _pixels(origins, tile_shape, mode, dev):
+    """Pixel coordinates xs, ys [T, P] of every tile."""
+    th, tw = tile_shape
+    pidx = torch.arange(th * tw, device=dev)
+    off = PIXEL_OFFSET[mode]
+    xs = (origins[:, 1:2].float() + (pidx % tw).float()) + off
+    ys = (origins[:, 0:1].float() + (pidx // tw).float()) + off
+    return xs, ys
 
 
 def composite_instances_ref(inst, astarts, counts, origins,
                             tile_shape: Tuple[int, int], chunk: int,
-                            mode: str):
+                            mode: str, save_tbounds: bool = False):
     """Plain PyTorch version of the forward compositor.
 
     inst [R,16] f32; astarts, counts [T] int; origins [T,2] int (y0, x0).
     Walks every tile's segment in chunks of ``chunk`` rows, all live tiles
     at once: T = T_in · exclusive cumprod(1 − a) within the chunk and, in
     conic mode, the gate T·(1 − a) ≥ 1e-4 and the stop once no pixel of a
-    tile has T ≥ 1e-4. Returns rgb [T,3,P], alpha [T,P], jstop [T] int32.
+    tile has T ≥ 1e-4. Returns rgb [T,3,P], alpha [T,P], jstop [T] int32,
+    and with ``save_tbounds`` also tbounds [R/chunk, P]: each walked
+    chunk's entry T (row astarts/chunk + j), zero elsewhere.
     """
     early_stop = mode == "conic"
-    pixel_offset = PIXEL_OFFSET[mode]
     th, tw = tile_shape
     P = th * tw
     G = chunk
@@ -232,12 +280,12 @@ def composite_instances_ref(inst, astarts, counts, origins,
     dev = inst.device
     astarts = astarts.long()
     counts = counts.long()
-    pidx = torch.arange(P, device=dev)
-    xs = (origins[:, 1:2].float() + (pidx % tw).float()) + pixel_offset
-    ys = (origins[:, 0:1].float() + (pidx // tw).float()) + pixel_offset
+    xs, ys = _pixels(origins, tile_shape, mode, dev)
     t_in = torch.ones((nt, P), dtype=torch.float32, device=dev)
     acc = torch.zeros((nt, 4, P), dtype=torch.float32, device=dev)
     jstop = torch.zeros((nt,), dtype=torch.int32, device=dev)
+    tbounds = (torch.zeros((inst.shape[0] // G, P), dtype=torch.float32,
+                           device=dev) if save_tbounds else None)
     n_steps = (counts + G - 1) // G
     live = n_steps > 0
     rows_g = torch.arange(G, device=dev)
@@ -245,11 +293,13 @@ def composite_instances_ref(inst, astarts, counts, origins,
         act = torch.nonzero(live & (n_steps > j)).reshape(-1)
         if act.numel() == 0:
             break
+        if save_tbounds:
+            tbounds[astarts[act] // G + j] = t_in[act]
         rowmask = rows_g[None, :] < (counts[act] - j * G)[:, None]  # [A,G]
         rows = astarts[act, None] + j * G + rows_g[None, :]
         f = inst[torch.where(rowmask, rows, torch.zeros_like(rows))]  # [A,G,16]
-        a = _chunk_alpha(mode, f, xs[act, None, :], ys[act, None, :],
-                         rowmask[..., None])  # [A,G,P]
+        a, _ = _chunk_alpha(mode, f, xs[act, None, :], ys[act, None, :],
+                            rowmask[..., None])  # [A,G,P]
         cp = torch.cumprod(1.0 - a, dim=1)
         excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
         T = t_in[act, None, :] * excl
@@ -265,19 +315,102 @@ def composite_instances_ref(inst, astarts, counts, origins,
         jstop[act] = j + 1
         if early_stop:
             live[act] = t_out.amax(dim=1) >= STOP_T
+    if save_tbounds:
+        return acc[:, :3], acc[:, 3], jstop, tbounds
     return acc[:, :3], acc[:, 3], jstop
 
 
-def _kernel_lib():
+def composite_instances_bwd_ref(inst, tbounds, astarts, counts, origins,
+                                jstop, g_rgb, g_alpha,
+                                tile_shape: Tuple[int, int], chunk: int,
+                                mode: str):
+    """Plain PyTorch version of the backward compositor (the math of
+    ``_bwd_kernel``, ``rasterize_pallas.py:528-672``).
+
+    One reverse sweep per tile over its walked chunks ``jstop−1 … 0``, all
+    tiles at once. Each chunk recomputes a and T from its stored entry T
+    (no division to rebuild T), with w = ⟨g_rgb, rgb⟩ + g_alpha and the
+    strict suffix S_i = sfx + (Σ_chunk w·contrib − inclusive cumsum_i),
+    dL/da = w·T·keep − S/(1 − a), then the per-mode chain to the packed
+    features (``:603-651``). Returns dinst [R,16]: rows never walked stay
+    zero, as do columns 5 (conic) and 10-15.
+    """
+    early_stop = mode == "conic"
+    G = chunk
+    nt = astarts.shape[0]
+    dev = inst.device
+    astarts = astarts.long()
+    counts = counts.long()
+    jstop = jstop.long()
+    xs, ys = _pixels(origins, tile_shape, mode, dev)
+    dinst = torch.zeros_like(inst)
+    sfx = torch.zeros_like(g_alpha)
+    rows_g = torch.arange(G, device=dev)
+    for jj in range(int(jstop.max()) if nt else 0):
+        act = torch.nonzero(jstop > jj).reshape(-1)
+        j = jstop[act] - 1 - jj  # each tile's own reverse chunk
+        rowmask = rows_g[None, :] < (counts[act] - j * G)[:, None]  # [A,G]
+        rows = astarts[act, None] + j[:, None] * G + rows_g[None, :]
+        f = inst[torch.where(rowmask, rows, torch.zeros_like(rows))]  # [A,G,16]
+        T_in = tbounds[astarts[act] // G + j][:, None, :]  # [A,1,P]
+        a, aux = _chunk_alpha(mode, f, xs[act, None, :], ys[act, None, :],
+                              rowmask[..., None])
+        cp = torch.cumprod(1.0 - a, dim=1)
+        T = T_in * torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
+        if early_stop:
+            keep = (T * (1.0 - a) >= STOP_T).float()
+        else:
+            keep = torch.ones_like(a)
+        contrib = a * T * keep
+        g_r, g_g, g_b = (g_rgb[act, c, None, :] for c in range(3))
+        g_a = g_alpha[act, None, :]
+        w = g_r * f[..., 7:8] + g_g * f[..., 8:9] + g_b * f[..., 9:10] + g_a
+        wc = w * contrib
+        tot = wc.sum(1, keepdim=True)
+        s_i = sfx[act, None, :] + (tot - torch.cumsum(wc, dim=1))
+        da = w * T * keep - s_i / (1.0 - a)
+        dcol = [(g * contrib).sum(2) for g in (g_r, g_g, g_b)]
+        if mode == "conic":
+            dx, dy, e, raw, flow = aux
+            da_f = da * flow.float()
+            dop = (e * da_f).sum(2)
+            dsigma = -raw * da_f
+            A, B, C = f[..., 2:3], f[..., 3:4], f[..., 4:5]
+            grads = [
+                (-(A * dx + B * dy) * dsigma).sum(2),
+                (-(C * dy + B * dx) * dsigma).sum(2),
+                (0.5 * dx * dx * dsigma).sum(2), (dx * dy * dsigma).sum(2),
+                (0.5 * dy * dy * dsigma).sum(2), torch.zeros_like(dop), dop]
+        else:
+            dx, dy, u, v, e, sx2, sy2 = aux
+            da_m = da * rowmask[..., None].float()
+            dop = (e * da_m).sum(2)
+            dE = f[..., 6:7] * da_m
+            du = dE * (e * (-2.0 * u / sx2))
+            dv = dE * (e * (-2.0 * v / sy2))
+            c_, s_ = f[..., 2:3], f[..., 3:4]
+            grads = [
+                (-(du * c_ - dv * s_)).sum(2), (-(du * s_ + dv * c_)).sum(2),
+                (du * dx + dv * dy).sum(2), (du * dy - dv * dx).sum(2),
+                (dE * e * (u * u / (sx2 * sx2))).sum(2) * 4.0 * f[..., 4],
+                (dE * e * (v * v / (sy2 * sy2))).sum(2) * 4.0 * f[..., 5],
+                dop]
+        grads = torch.stack(grads + dcol, dim=-1)  # [A,G,10]
+        dinst[rows[rowmask], :10] = grads[rowmask]  # each row once
+        sfx[act] += tot[:, 0]
+    return dinst
+
+
+def _kernel_fn(name: str, n_ptrs: int):
+    """The C entry ``name`` of ``csrc/<name>.cu``: (inst, n_rows, then
+    ``n_ptrs`` pointers, n_tiles, th, tw, G, conic, stream)."""
     from pose_splatter_torch.ops import _build
 
-    lib = _build.load("composite_fwd")
-    fn = lib.composite_fwd
+    fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       p]
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * n_ptrs
+                       + [ctypes.c_int] * 5 + [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -293,26 +426,9 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def composite_instances(inst, astarts, counts, origins,
-                        tile_shape: Tuple[int, int], chunk: int, mode: str):
-    """Composite per-tile instance segments in ``"ellipse"`` (2D) or
-    ``"conic"`` (3D) mode.
-
-    inst [R,16] float32 (R a multiple of ``chunk``); astarts, counts [T]
-    int32; origins [T,2] int32 (y0, x0). Returns rgb [T,3,P], alpha [T,P],
-    jstop [T] int32 (chunks walked per tile).
-
-    CPU tensors run :func:`composite_instances_ref`; CUDA tensors launch
-    ``csrc/composite_fwd.cu`` (built at first use) and count the launch in
-    ``composite_instances.launches``.
-    """
-    if mode not in ("conic", "ellipse"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if inst.device.type == "cpu":
-        return composite_instances_ref(inst, astarts, counts, origins,
-                                       tile_shape, chunk, mode)
-    if inst.device.type != "cuda":
-        raise ValueError(f"unsupported device {inst.device}")
+def _check_launch(inst, astarts, counts, origins, tile_shape, chunk,
+                  max_chunk):
+    """Checks the kernels share; returns (R, T, P)."""
     th, tw = tile_shape
     P = th * tw
     nt = astarts.shape[0]
@@ -324,27 +440,145 @@ def composite_instances(inst, astarts, counts, origins,
     _check("origins", origins, torch.int32, (nt, 2), dev)
     if R % chunk:
         raise ValueError(f"instance rows {R} not a multiple of chunk {chunk}")
-    if P > 1024 or not 0 < chunk <= 768:
+    if P > 1024 or not 0 < chunk <= max_chunk:
         raise ValueError(f"tile {tile_shape} / chunk {chunk} not supported "
-                         "(P <= 1024 pixels, chunk <= 768 rows)")
+                         f"(P <= 1024 pixels, chunk <= {max_chunk} rows)")
     if inst.data_ptr() % 16:
         raise ValueError("inst must be 16-byte aligned")
+    return R, nt, P
+
+
+def composite_instances(inst, astarts, counts, origins,
+                        tile_shape: Tuple[int, int], chunk: int, mode: str,
+                        save_tbounds: bool = False):
+    """Composite per-tile instance segments in ``"ellipse"`` (2D) or
+    ``"conic"`` (3D) mode.
+
+    inst [R,16] float32 (R a multiple of ``chunk``); astarts, counts [T]
+    int32 (astarts multiples of ``chunk``); origins [T,2] int32 (y0, x0).
+    Returns rgb [T,3,P], alpha [T,P], jstop [T] int32 (chunks walked per
+    tile), and with ``save_tbounds`` tbounds [R/chunk, P] (each walked
+    chunk's entry transmittance, for :func:`composite_instances_bwd`).
+
+    CPU tensors run :func:`composite_instances_ref`; CUDA tensors launch
+    ``csrc/composite_fwd.cu`` (built at first use) and count the launch in
+    ``composite_instances.launches``.
+    """
+    if mode not in ("conic", "ellipse"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if inst.device.type == "cpu":
+        return composite_instances_ref(inst, astarts, counts, origins,
+                                       tile_shape, chunk, mode, save_tbounds)
+    if inst.device.type != "cuda":
+        raise ValueError(f"unsupported device {inst.device}")
+    R, nt, P = _check_launch(inst, astarts, counts, origins, tile_shape,
+                             chunk, max_chunk=768)
+    dev = inst.device
     rgb = torch.empty((nt, 3, P), dtype=torch.float32, device=dev)
     alpha = torch.empty((nt, P), dtype=torch.float32, device=dev)
     jstop = torch.empty((nt,), dtype=torch.int32, device=dev)
+    tbounds = (torch.zeros((R // chunk, P), dtype=torch.float32, device=dev)
+               if save_tbounds else None)
+    out = (rgb, alpha, jstop, tbounds) if save_tbounds else (rgb, alpha, jstop)
     if nt == 0:
-        return rgb, alpha, jstop  # nothing to launch, nothing counted
-    fn = _kernel_lib()
+        return out  # nothing to launch, nothing counted
+    fn = _kernel_fn("composite_fwd", 7)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(inst.data_ptr(), R, astarts.data_ptr(), counts.data_ptr(),
                  origins.data_ptr(), rgb.data_ptr(), alpha.data_ptr(),
-                 jstop.data_ptr(), nt, th, tw, chunk, int(mode == "conic"),
+                 jstop.data_ptr(), tbounds.data_ptr() if save_tbounds else None,
+                 nt, tile_shape[0], tile_shape[1], chunk, int(mode == "conic"),
                  stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
     composite_instances.launches += 1
-    return rgb, alpha, jstop
+    return out
 
 
 composite_instances.launches = 0
+
+
+def composite_instances_bwd(inst, tbounds, astarts, counts, origins, jstop,
+                            g_rgb, g_alpha, tile_shape: Tuple[int, int],
+                            chunk: int, mode: str):
+    """Instance-row gradients [R,16] of a composite, from the forward's
+    ``tbounds`` and ``jstop`` and the loss gradients g_rgb [T,3,P],
+    g_alpha [T,P] (other arguments as :func:`composite_instances`).
+
+    CPU tensors run :func:`composite_instances_bwd_ref`; CUDA tensors
+    launch ``csrc/composite_bwd.cu`` (built at first use) and count the
+    launch in ``composite_instances_bwd.launches``.
+    """
+    if mode not in ("conic", "ellipse"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if inst.device.type == "cpu":
+        return composite_instances_bwd_ref(inst, tbounds, astarts, counts,
+                                           origins, jstop, g_rgb, g_alpha,
+                                           tile_shape, chunk, mode)
+    if inst.device.type != "cuda":
+        raise ValueError(f"unsupported device {inst.device}")
+    # Shared memory a block: chunk rows plus 8 warps' partials of 10
+    # gradients a row, 384 bytes a row, within the card's 227 KB.
+    R, nt, P = _check_launch(inst, astarts, counts, origins, tile_shape,
+                             chunk, max_chunk=512)
+    dev = inst.device
+    _check("tbounds", tbounds, torch.float32, (R // chunk, P), dev)
+    _check("jstop", jstop, torch.int32, (nt,), dev)
+    _check("g_rgb", g_rgb, torch.float32, (nt, 3, P), dev)
+    _check("g_alpha", g_alpha, torch.float32, (nt, P), dev)
+    dinst = torch.zeros_like(inst)
+    if nt == 0:
+        return dinst  # nothing to launch, nothing counted
+    fn = _kernel_fn("composite_bwd", 8)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(inst.data_ptr(), R, tbounds.data_ptr(), astarts.data_ptr(),
+                 counts.data_ptr(), origins.data_ptr(), jstop.data_ptr(),
+                 g_rgb.data_ptr(), g_alpha.data_ptr(), dinst.data_ptr(), nt,
+                 tile_shape[0], tile_shape[1], chunk, int(mode == "conic"),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
+    composite_instances_bwd.launches += 1
+    return dinst
+
+
+composite_instances_bwd.launches = 0
+
+
+class _Composite(torch.autograd.Function):
+    """Forward with the ``tbounds`` store, backward by the backward
+    compositor (``_make_compositor``, ``rasterize_pallas.py:789-822``)."""
+
+    @staticmethod
+    def forward(ctx, inst, astarts, counts, origins, tile_shape, chunk, mode):
+        rgb, alpha, jstop, tbounds = composite_instances(
+            inst, astarts, counts, origins, tile_shape, chunk, mode,
+            save_tbounds=True)
+        ctx.save_for_backward(inst, tbounds, astarts, counts, origins, jstop)
+        ctx.cfg = (tile_shape, chunk, mode)
+        return rgb, alpha
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_alpha):
+        stages.mark("loss_bwd")
+        inst, tbounds, astarts, counts, origins, jstop = ctx.saved_tensors
+        args = (inst, tbounds, astarts, counts, origins, jstop,
+                g_rgb.contiguous(), g_alpha.contiguous()) + ctx.cfg
+        dinst = composite_instances_bwd(*args)
+        stages.mark("kernel_bwd", tuple(
+            a.detach() if torch.is_tensor(a) else a for a in args))
+        return dinst, None, None, None, None, None, None
+
+
+def composite_with_grad(inst, astarts, counts, origins,
+                        tile_shape: Tuple[int, int], chunk: int, mode: str):
+    """rgb [T,3,P], alpha [T,P] of :func:`composite_instances`,
+    differentiable in ``inst``. The forward stores ``tbounds`` only when a
+    gradient is needed; otherwise it is the plain forward."""
+    if torch.is_grad_enabled() and inst.requires_grad:
+        return _Composite.apply(inst, astarts, counts, origins, tile_shape,
+                                chunk, mode)
+    return composite_instances(inst, astarts, counts, origins, tile_shape,
+                               chunk, mode)[:2]

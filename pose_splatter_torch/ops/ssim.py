@@ -5,8 +5,9 @@ torchmetrics ``StructuralSimilarityIndexMeasure`` defaults: Gaussian window
 (kernel 11, sigma 1.5), k1 = 0.01, k2 = 0.03, data_range 1, channel-wise
 VALID filtering and a global mean. The JAX code forces
 ``Precision.HIGHEST`` because reduced-precision passes destroy the
-E[x²] − μ² variance estimates; here TF32 is turned off for the filter
-(cuDNN runs float32 convolutions in TF32 by default).
+E[x²] − μ² variance estimates; here TF32 is turned off for the filter and
+for its backward (cuDNN runs float32 convolutions in TF32 by default, and a
+backward runs after the forward's context has closed).
 """
 
 from __future__ import annotations
@@ -35,12 +36,28 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = saved
 
 
+class _DepthwiseFilter(torch.autograd.Function):
+    """Depthwise VALID conv2d of img [B,C,H,W] by k [C,1,kh,kw], forward and
+    backward with TF32 off. Only the image carries a gradient."""
+
+    @staticmethod
+    def forward(ctx, img, k):
+        ctx.save_for_backward(k)
+        with _no_tf32():
+            return F.conv2d(img, k, groups=img.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (k,) = ctx.saved_tensors
+        with _no_tf32():
+            return F.conv_transpose2d(grad, k, groups=grad.shape[1]), None
+
+
 def _filter2d(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Depthwise VALID filter. img [B,H,W,C] → [B,H',W',C]."""
     C = img.shape[-1]
     k = kernel[None, None].expand(C, 1, *kernel.shape).contiguous()
-    with _no_tf32():
-        out = F.conv2d(img.permute(0, 3, 1, 2), k, groups=C)
+    out = _DepthwiseFilter.apply(img.permute(0, 3, 1, 2), k)
     return out.permute(0, 2, 3, 1)
 
 

@@ -1,18 +1,21 @@
-"""Per-stage timing of the eval forward, off unless a caller records.
+"""Per-stage timing of the forward and the train step, off unless a caller
+records.
 
-The forward marks the end of each of its stages with :func:`mark`. Inside
-``with record() as rec:`` every mark synchronises the device, adds the host
-time since the previous mark to ``rec.ms[name]`` and keeps the value passed
-with it in ``rec.values[name]``. Outside a recording a mark costs one check.
-Stage spans end in a synchronize, so recorded runs are slower than plain
-ones; time the whole forward without recording.
+The forward, the compositor's backward and the train step mark the end of
+each of their stages with :func:`mark`. Inside ``with record() as rec:``
+every mark synchronises the device, appends the host time since the
+previous mark to ``rec.spans[name]`` (and adds it to ``rec.ms[name]``) and
+appends the value passed with it to ``rec.values[name]``. Outside a
+recording a mark costs one check. Stage spans end in a synchronize, so
+recorded runs are slower than plain ones; time whole runs without
+recording.
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 
@@ -21,7 +24,8 @@ class Recording:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.ms: Dict[str, float] = {}
-        self.values: Dict[str, Any] = {}
+        self.spans: Dict[str, List[float]] = {}
+        self.values: Dict[str, List[Any]] = {}
         self._t = time.perf_counter()
 
     def _sync(self):
@@ -31,10 +35,12 @@ class Recording:
     def mark(self, name: str, value: Any = None):
         self._sync()
         now = time.perf_counter()
-        self.ms[name] = self.ms.get(name, 0.0) + 1e3 * (now - self._t)
+        span = 1e3 * (now - self._t)
+        self.ms[name] = self.ms.get(name, 0.0) + span
+        self.spans.setdefault(name, []).append(span)
         self._t = now
         if value is not None:
-            self.values[name] = value
+            self.values.setdefault(name, []).append(value)
 
 
 _active: Optional[Recording] = None

@@ -66,17 +66,24 @@ def synthetic_frames(Ks, Es, height: int, width: int, crop_center, axes,
 
 
 class FrameSet:
-    """In-memory dataset with the JAX package's ``FrameDataset.get``
-    interface: observed views only."""
+    """In-memory dataset with the interface of ``data/dataset.py``'s
+    ``FrameDataset`` that ``FrameLoader`` and the evaluation read: ``get``
+    (observed views only; a view drawn from ``_rng`` when none is given),
+    ``observed_views``, ``split`` and ``_rng``."""
 
-    def __init__(self, frames, observed):
+    def __init__(self, frames, observed, split: str = "train", seed: int = 0):
         self.frames = frames
-        self.observed = list(observed)
+        self.observed_views = np.asarray(list(observed), dtype=int)
+        self.split = split
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self):
         return len(self.frames["angle"])
 
     def get(self, i, view_idx=None):
         fr = self.frames
-        return (fr["mask"][i, self.observed], fr["img"][i, self.observed],
-                fr["p_3d"][i], float(fr["angle"][i]), view_idx)
+        if view_idx is None:
+            view_idx = int(self._rng.choice(self.observed_views))
+        obs = self.observed_views
+        return (fr["mask"][i, obs], fr["img"][i, obs], fr["p_3d"][i],
+                float(fr["angle"][i]), view_idx)

@@ -1,6 +1,7 @@
-"""The port's CUDA forward compositor against its plain PyTorch version, on
-the card: tile shapes and chunk sizes beyond the main path's, empty and
-ragged segments, early stop, the launch count and the wrapper's checks.
+"""The port's CUDA forward and backward compositors against their plain
+PyTorch versions, on the card: tile shapes and chunk sizes beyond the main
+path's, empty and ragged segments, early stop, the forward's ``tbounds``
+store, the launch counts and the wrappers' checks.
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
 (the kernel has no CPU mode). On a machine with an NVIDIA GPU and ``nvcc``:
@@ -130,3 +131,80 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         with pytest.raises((ValueError, TypeError)):
             tk.composite_instances(*case, mode)
     assert tk.composite_instances.launches == before
+
+
+def _backward_inputs(args, seed=1):
+    inst, astarts, counts, origins, tile, chunk, mode = args
+    rgb, alpha, jstop, tbounds = tk.composite_instances(*args, save_tbounds=True)
+    gen = torch.Generator().manual_seed(seed)
+    P = tile[0] * tile[1]
+    g_rgb = torch.randn((counts.numel(), 3, P), generator=gen).to(inst.device)
+    g_alpha = torch.randn((counts.numel(), P), generator=gen).to(inst.device)
+    return (inst, tbounds, astarts, counts, origins, jstop, g_rgb, g_alpha,
+            tile, chunk, mode)
+
+
+@pytest.mark.parametrize("mode", ["ellipse", "conic"])
+@pytest.mark.parametrize("tile,chunk", [((8, 128), 64), ((16, 16), 64),
+                                        ((4, 8), 16), ((32, 32), 128)])
+def test_backward_kernel_matches_plain(dev, mode, tile, chunk):
+    args = _binned(dev, mode, tile, chunk)
+    plain = tk.composite_instances_ref(*args, save_tbounds=True)
+    bargs = _backward_inputs(args)
+    # The store: the plain version's entry T (same chunked products, TOL).
+    torch.testing.assert_close(bargs[1], plain[3], atol=TOL, rtol=0)
+    assert torch.equal(bargs[5], plain[2])
+    before = tk.composite_instances_bwd.launches
+    got = tk.composite_instances_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert tk.composite_instances_bwd.launches == before + 1
+    ref = tk.composite_instances_bwd_ref(*bargs)
+    # Each gradient sums over P pixels terms carrying a suffix over the
+    # tile's walked rows, in another order: within 1e-4 of each column's
+    # largest entry (float32 roundoff times sqrt(P x rows) is below that).
+    scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+    assert ((got - ref).abs() <= 1e-4 * scale).all()
+    assert float(got.abs().max()) > 0 and torch.isfinite(got).all()
+    assert (got[:, 10:] == 0).all()
+    if mode == "conic":
+        assert (got[:, 5] == 0).all()
+    # Rows no tile walked keep their zeros.
+    walked = torch.zeros(got.shape[0], dtype=torch.bool, device=dev)
+    for a, n in zip(args[1].tolist(), bargs[3].tolist()):
+        walked[a:a + n] = True
+    assert (got[~walked] == 0).all()
+    again = tk.composite_instances_bwd(*bargs)
+    assert torch.equal(got, again)  # no atomics: bit-identical reruns
+
+
+def test_backward_kernel_with_no_tiles(dev):
+    inst = torch.zeros((64, tk.F), device=dev)
+    none = torch.zeros((0,), dtype=torch.int32, device=dev)
+    before = tk.composite_instances_bwd.launches
+    d = tk.composite_instances_bwd(
+        inst, torch.zeros((1, 1024), device=dev), none, none,
+        torch.zeros((0, 2), dtype=torch.int32, device=dev), none,
+        torch.zeros((0, 3, 1024), device=dev), torch.zeros((0, 1024), device=dev),
+        (8, 128), 64, "ellipse")
+    assert d.shape == inst.shape and (d == 0).all()
+    assert tk.composite_instances_bwd.launches == before
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    b = list(_backward_inputs(_binned(dev, "ellipse", (8, 128), 64)))
+    before = tk.composite_instances_bwd.launches
+    swaps = [
+        (1, b[1][:-1]),                        # tbounds rows
+        (1, b[1].double()),                    # tbounds dtype
+        (5, b[5].long()),                      # jstop dtype
+        (6, b[6][:, :2].contiguous()),         # g_rgb shape
+        (7, b[7].t().contiguous().t()),        # g_alpha not contiguous
+        (7, b[7].cpu()),                       # g_alpha device
+        (9, 1024),                             # chunk > 512 rows
+    ]
+    for i, value in swaps:
+        case = list(b)
+        case[i] = value
+        with pytest.raises((ValueError, TypeError)):
+            tk.composite_instances_bwd(*case)
+    assert tk.composite_instances_bwd.launches == before

@@ -113,9 +113,10 @@ def test_stage_marks_record_the_forward(setup):
     assert list(rec.ms) == ["carve", "unets", "select_head", "binning",
                             "kernel", "untile"]
     assert all(v >= 0 for v in rec.ms.values())
-    b = rec.values["binning"]
+    assert all(len(v) == 1 for v in rec.spans.values())
+    (b,) = rec.values["binning"]
     assert b.counts.numel() == C * b.n_ty * b.n_tx
-    assert int(rec.values["select_head"]["valid"].sum()) == KW["max_n"]
+    assert int(rec.values["select_head"][0]["valid"].sum()) == KW["max_n"]
     assert torch.equal(plain[0], recorded[0])
     assert torch.equal(plain[1], recorded[1])
     assert stages._active is None
