@@ -7,11 +7,17 @@ Builds every CUDA kernel of the port from the sources in the checkout
 (``nvcc``, one process a source, all at once), then:
 
 1. card: prints the GPU's name and power limit and the build time;
-2. kernel phase: the forward compositor (with and without its ``tbounds``
+2. dyngather: the probe entry point (``pose_splatter_torch.scripts.
+   dbg_dyngather_micro``: ``probe_correct`` on both axes and the three
+   probe lines) with both gather wrappers' launches read around it; then
+   the kernel against its plain version, bit for bit, at [2304, 128] on
+   both axes for reps 32 and 1, timed with CUDA events beside
+   ``torch.take_along_dim``;
+3. kernel phase: the forward compositor (with and without its ``tbounds``
    store) and the backward compositor on synthetic instance arrays at the
    full-width shape (6 views x 576x512, 16000 Gaussians) in both modes,
    against their plain PyTorch versions, timed with CUDA events;
-3. eval slice: the 2D view-anchored eval forward at the repository's
+4. 2D eval slice: the 2D view-anchored eval forward at the repository's
    quality north-star configuration (``configs/templates/tpu_2d.json`` with
    ``view_anchored``: 576x512, grid 128, crop 96x80x64, 6 cameras with
    holdout views [5, 1], 3 U-Nets of base width 8, up to 16000 Gaussians)
@@ -22,13 +28,21 @@ Builds every CUDA kernel of the port from the sources in the checkout
    around them, then a per-frame breakdown from the forward's own stage
    marks (``pose_splatter_torch.utils.stages``) and a kernel-vs-plain check
    on the instance arrays that the forward binned;
-4. train slice: ``train_from_config`` at the same configuration (fresh
+5. 2D train slice: ``train_from_config`` at the same configuration (fresh
    start, lr 1e-4, img_lambda 0.5, ssim_lambda 0.1, batch 1) for K steps on
    synthetic frames, with both kernels' launch counts read around it and
-   each step's stages recorded; then K_EXTRA unrecorded steps, timed whole
-   with the launches read around each; then the backward kernel against
-   its plain version on the last step's own instance arrays, ``tbounds``
-   and loss gradient.
+   each step's stages recorded; then unrecorded steps, timed whole with the
+   launches read around each; then the backward kernel against its plain
+   version on the last step's own instance arrays, ``tbounds`` and loss
+   gradient;
+6. 3D eval and 3D train: the same two phases for the 3D Gaussian model,
+   ``configs/templates/tpu_3d.json`` as written (288x256, grid 112, crop
+   96x80x64, 6 cameras, holdout views [5, 1], 3 U-Nets of base width 8, up
+   to 16000 Gaussians; lr 1e-4, img_lambda 0.5, ssim_lambda 0): projection,
+   depth sort and both compositors in conic mode;
+7. bench shape: the 3D rasterizer alone at 576x512 with 16000 Gaussians
+   (``bench.py::run_3d``'s seed-0 cluster, f = 900), forward and backward
+   through means, quats, scales, opacities and colours, ms and Mpix/s.
 
 Prints one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -49,6 +63,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 H, W, N_GAUSS, VIEWS = 512, 576, 16000, 6
+H3, W3 = 256, 288  # the 3D configuration's render size
 TOL = 1e-5  # kernel vs plain: same math, sums in another order (see below)
 # Published H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the
 # tensor cores and HBM3 bandwidth.
@@ -74,10 +89,11 @@ OPS_PER_PAIR = 20
 # quadratic form's coefficients to cos, sin, sx, sy) are left out.
 OPS_PER_PAIR_BWD = 49
 EPS32 = 2.0 ** -24  # float32 unit roundoff
-# Train slice: steps driven through train_from_config, then steps timed
+# Train slices: steps driven through train_from_config, then steps timed
 # whole outside any recording.
 K_STEPS = 8
 K_EXTRA = 3
+K_STEPS_3D = 6
 
 
 def card_line() -> str:
@@ -92,18 +108,9 @@ def card_line() -> str:
 # ----------------------------------------------------------------------------
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    import torch
+    from pose_splatter_torch.utils.device import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters, warmup)
 
 
 def kernel_bound(astarts, counts, jstop, tile_shape, G):
@@ -333,7 +340,11 @@ def torch_default_weights(net, seed: int = 0):
     net.load_state_dict(cpu.state_dict())
 
 
-def slice_phase(report):
+def eval_phase(report, key, config, mode):
+    """The eval forward of ``config`` through ``render_images_in_memory``
+    and ``make_eval_step`` with seeded random weights, then per-frame
+    stages and the forward kernel against its plain version (``mode``:
+    "ellipse" for 2D, "conic" for 3D) on the forward's own arrays."""
     import torch
 
     from pose_splatter_torch.models.pose_splatter import init_means2d_center
@@ -354,14 +365,15 @@ def slice_phase(report):
         synthetic_frames,
     )
 
-    config = north_star_config()
-    Ks, Es = ring_cameras(VIEWS, W, H, focal=800.0, radius=0.6)
+    Wc, Hc = config.render_width, config.render_height
+    Ks, Es = ring_cameras(VIEWS, Wc, Hc, focal=800.0 * Wc / W, radius=0.6)
     t0 = time.perf_counter()
     model = build_model(config, cameras=(Ks, Es), device="cuda", seed=0)
     torch_default_weights(model.net)
-    init_means2d_center(model.net, W, H, anchored=True)
+    if model.gaussian_mode == "2d":
+        init_means2d_center(model.net, Wc, Hc, anchored=True)
     torch.cuda.synchronize()
-    print(f"model: {sum(p.numel() for p in model.net.parameters())} parameters, "
+    print(f"[{key}] model: {model.gaussian_mode}, {sum(p.numel() for p in model.net.parameters())} parameters, "
           f"crop {model.input_size}, views {model.num_cameras} (observed "
           f"{model.observed_views}), built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -369,7 +381,7 @@ def slice_phase(report):
     grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
     crop_center = grid.reshape(-1, 3).mean(0)
     n_frames = 3
-    frames = synthetic_frames(Ks, Es, H, W, crop_center, (0.055, 0.032, 0.028),
+    frames = synthetic_frames(Ks, Es, Hc, Wc, crop_center, (0.055, 0.032, 0.028),
                               n_frames, seed=0)
     data = FrameSet(frames, model.observed_views)
     step = make_eval_step(model, config.img_lambda, config.ssim_lambda)
@@ -400,7 +412,7 @@ def slice_phase(report):
     t_eval = time.perf_counter() - t0
     launches = K.composite_instances.launches
     # ---------------------------------------------------------------
-    print(f"main path: render_images_in_memory {n_frames} frames x "
+    print(f"[{key}] main path: render_images_in_memory {n_frames} frames x "
           f"{VIEWS} views in {1e3 * t_render:.1f} ms, make_eval_step "
           f"{n_frames} frames in {1e3 * t_eval:.1f} ms; composite_fwd "
           f"launches {launches}", flush=True)
@@ -408,7 +420,7 @@ def slice_phase(report):
         raise AssertionError("the main path never launched composite_fwd")
     metrics = {k: float(v) for k, v in metrics.items()}
     print(f"eval step: loss {float(loss):.6f} metrics {metrics}", flush=True)
-    if rgba.shape != (n_frames, VIEWS, H, W, 4):
+    if rgba.shape != (n_frames, VIEWS, Hc, Wc, 4):
         raise AssertionError(f"rendered shape {rgba.shape}")
     if not np.isfinite(float(loss)) or not all(np.isfinite(list(metrics.values()))):
         raise AssertionError("non-finite eval loss or metrics")
@@ -463,7 +475,7 @@ def slice_phase(report):
                    overflow=int(overflow_e), instances=int(b.counts.long().sum()),
                    kernel_launches_per_forward=per_forward, loss_view0=float(tl))
         frames_out.append(out)
-        print(f"frame {i}: forward {whole:.2f} ms (median of "
+        print(f"[{key}] frame {i}: forward {whole:.2f} ms (median of "
               f"{', '.join(f'{x:.2f}' for x in runs)}), {per_forward} "
               f"composite_fwd launch(es) | "
               + " ".join(f"{k} {v:.2f}" for k, v in st.items())
@@ -478,11 +490,14 @@ def slice_phase(report):
             # The kernel against its plain version on the instance arrays
             # that the forward itself binned.
             args = (b.inst, b.astarts, b.counts, b.origins, R.DEFAULT_TILE,
-                    R.DEFAULT_CHUNK, "ellipse")
+                    R.DEFAULT_CHUNK, mode)
             rgb_t, alpha_t, jstop = K.composite_instances(*args)
             ref = K.composite_instances_ref(*args)
             err = max(float((rgb_t - ref[0]).abs().max()),
                       float((alpha_t - ref[1]).abs().max()))
+            if not torch.equal(jstop, ref[2]):
+                raise AssertionError(f"[{key}] jstop differs from the plain "
+                                     "version on the forward's arrays")
             ms = cuda_ms(lambda: K.composite_instances(*args), iters=20, warmup=2)
             plain_ms = cuda_ms(lambda: K.composite_instances_ref(*args), iters=2)
             bound = kernel_bound(b.astarts, b.counts, jstop, R.DEFAULT_TILE,
@@ -495,8 +510,9 @@ def slice_phase(report):
             hot_ms = cuda_ms(lambda: K.composite_instances(*one), iters=20,
                              warmup=2)
             slice_kernel = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                longest_tile_alone_ms=hot_ms, **bound)
-            print(f"main-path composite: max|kernel-plain| {err:.3g} (tol "
+                                longest_tile_alone_ms=hot_ms, mode=mode,
+                                **bound)
+            print(f"[{key}] main-path composite_fwd ({mode}): max|kernel-plain| {err:.3g} (tol "
                   f"{TOL}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
                   f"{bound['busy_tiles']} of {b.counts.numel()} tiles hold "
@@ -507,7 +523,7 @@ def slice_phase(report):
                 raise AssertionError(f"main-path kernel disagrees ({err})")
     if frames_out[0]["gaussians_valid"] < N_GAUSS:
         raise AssertionError("selection did not reach max_n")
-    report["slice_phase"] = dict(
+    report[key] = dict(
         launches=launches, render_ms=1e3 * t_render, eval_step_ms=1e3 * t_eval,
         eval_loss=float(loss), eval_metrics=metrics, per_camera=per_cam,
         frames=frames_out, main_path_kernel=slice_kernel,
@@ -528,14 +544,190 @@ def north_star_config(**overrides):
     return config
 
 
+def config_3d(**overrides):
+    """``configs/templates/tpu_3d.json`` as written (min_n, max_n, U-Net
+    count and width are the model's defaults: 1024, 16000, 3, 8)."""
+    from pose_splatter_torch.config import Config
+
+    cfg = json.loads((ROOT / "configs" / "templates" / "tpu_3d.json").read_text())
+    cfg.update(overrides)
+    config = Config(cfg)
+    assert config.gaussian_mode == "3d"
+    assert (config.render_width, config.render_height) == (W3, H3)
+    return config
+
+
+def dyngather_bound(S: int, L: int, reps: int):
+    """Least time on an H100 for the repeated gather: the table, the indices
+    and the output once each against the reps - 1 float32 adds of every
+    element (the first term needs no add)."""
+    nbytes = 3 * S * L * 4
+    ops = (reps - 1) * S * L
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return dict(bytes=nbytes, ops=ops, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def dyngather_phase(report):
+    """The probe entry point with the gather wrappers' launches read around
+    it, then the kernel against its plain version (bit for bit) and its
+    time beside the plain version's and ``torch.take_along_dim``'s."""
+    import torch
+
+    from pose_splatter_torch.ops import dyngather as D
+    from pose_splatter_torch.scripts import dbg_dyngather_micro as probe
+
+    # ---- the probe's main path, with the launch counts zeroed around it ----
+    D.gather_sum.launches = 0
+    D.gather.launches = 0
+    res = probe.run(seed=0)
+    launches = dict(gather_sum=D.gather_sum.launches, gather=D.gather.launches)
+    # ---------------------------------------------------------------------
+    print(f"[dyngather] main path: probe_correct {res['correct']}, "
+          f"launches {launches}", flush=True)
+    if not all(res["correct"].values()):
+        raise AssertionError("dyngather: probe_correct reported a MISMATCH")
+    # probe_correct: one gather an axis; each probe line: one checked call,
+    # then the warm-up and timed launches, every one counted.
+    expect = dict(gather_sum=3 * (1 + probe.WARMUP + probe.ITERS), gather=2)
+    if launches != expect:
+        raise AssertionError(f"dyngather: launches {launches}, the probe makes "
+                             f"{expect}")
+
+    dev = torch.device("cuda")
+    S, L = probe.S, probe.L
+    rng = np.random.default_rng(5)
+    rows = {}
+    for name, reps in (("dyngather_sum", probe.REPS), ("dyngather_once", 1)):
+        per_axis = {}
+        for axis in (0, 1):
+            dim = S if axis == 0 else L
+            tab = torch.from_numpy(rng.random((S, L), dtype=np.float32)).to(dev)
+            idx = torch.from_numpy(rng.integers(
+                0, dim - (reps > 1), (S, L)).astype(np.int32)).to(dev)
+
+            wrapped_fn = D.gather if reps == 1 else D.gather_sum
+
+            def wrapped():
+                if reps == 1:
+                    return D.gather(tab, idx, axis)
+                return D.gather_sum(tab, idx, axis, reps)
+
+            got = wrapped()
+            ref = D.gather_sum_ref(tab, idx, axis, reps)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got, ref))
+            out = torch.empty_like(tab)
+            idx_long = idx.long()
+            r = dict(
+                axis=axis, reps=reps, bit_equal=equal,
+                max_abs_err=float((got - ref).abs().max()),
+                # The kernel alone (the wrapper checked these inputs above).
+                ms=cuda_ms(lambda: D.launch(wrapped_fn, tab, idx, out, axis,
+                                             reps), 500, 20),
+                # The wrapper, with its index check's read-back.
+                wrapper_ms=cuda_ms(wrapped, 100, 5),
+                plain_ms=cuda_ms(lambda: D.gather_sum_ref(tab, idx, axis, reps),
+                                 20, 2),
+                library_ms=(cuda_ms(lambda: torch.take_along_dim(
+                    tab, idx_long, dim=axis), 500, 20) if reps == 1 else None),
+                **dyngather_bound(S, L, reps))
+            per_axis[axis] = r
+            lib = ("" if r["library_ms"] is None else
+                   f", torch.take_along_dim {r['library_ms']:.5f} ms")
+            print(f"[dyngather] {name} axis {axis} reps {reps} [{S}, {L}]: "
+                  f"bit-equal {equal} | kernel {r['ms']:.5f} ms, wrapper "
+                  f"{r['wrapper_ms']:.5f} ms, plain {r['plain_ms']:.4f} ms"
+                  f"{lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+                  flush=True)
+            if not equal:
+                raise AssertionError(f"dyngather {name} axis {axis}: kernel "
+                                     "differs from the plain version")
+        rows[name] = per_axis
+    report["dyngather_phase"] = dict(launches=launches, probe=res, rows=rows)
+    return launches, rows
+
+
+def bench3d_phase(report, card):
+    """The 3D rasterizer alone at bench.py's shape: 576x512, 16000
+    Gaussians of ``run_3d``'s seed-0 cluster, f = 900, one camera; forward
+    and backward of sum(rgb^2) + sum(alpha^2) through every Gaussian
+    parameter."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+
+    rng = np.random.default_rng(0)
+    means = np.concatenate([rng.normal(0, 0.06, (N_GAUSS, 2)),
+                            rng.normal(2.0, 0.06, (N_GAUSS, 1))], axis=1)
+    quats = rng.normal(size=(N_GAUSS, 4))
+    scales = np.exp(rng.normal(-5.0, 0.3, (N_GAUSS, 3)))
+    opac = rng.uniform(0.3, 0.95, N_GAUSS)
+    colors = rng.uniform(0, 1, (N_GAUSS, 3))
+    f = 900.0
+    dev = torch.device("cuda")
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    params = [t(x) for x in (means, quats, scales, opac, colors)]
+    Ks = t([[[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]]])
+    view = t(np.eye(4)[None])
+    bg = torch.ones(3, device=dev)
+
+    def fwd_bwd():
+        ps = [p.detach().requires_grad_(True) for p in params]
+        rgb, alpha, overflow = R.rasterize(*ps, view, Ks, W, H, backgrounds=bg,
+                                           mode="kernel", return_overflow=True)
+        loss = (rgb ** 2).sum() + (alpha ** 2).sum()
+        return loss.detach(), overflow, torch.autograd.grad(loss, ps)
+
+    fwd_bwd()  # warm-up: allocator, sort and gather workspaces
+    torch.cuda.synchronize()
+    # ---- the bench path, with the launch counts zeroed around it ----
+    K.composite_instances.launches = 0
+    K.composite_instances_bwd.launches = 0
+    loss, overflow, grads = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = dict(composite_fwd=K.composite_instances.launches,
+                    composite_bwd=K.composite_instances_bwd.launches)
+    # ---------------------------------------------------------------
+    if launches != dict(composite_fwd=1, composite_bwd=1):
+        raise AssertionError(f"bench shape: launches {launches}, expected one "
+                             "of each kernel")
+    if not np.isfinite(float(loss)) or not all(
+            torch.isfinite(g).all() for g in grads):
+        raise AssertionError("bench shape: non-finite loss or gradient")
+    runs = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    ms = float(np.median(runs))
+    event_ms = cuda_ms(fwd_bwd, iters=20, warmup=0)
+    out = dict(loss=float(loss), overflow=int(overflow), launches=launches,
+               ms_median=ms, ms_runs=runs, event_ms=event_ms,
+               mpix_s=H * W / ms / 1e3, card=card)
+    print(f"[bench3d] 3D rasterize fwd+bwd at {W}x{H}, {N_GAUSS} Gaussians: "
+          f"{ms:.3f} ms (median of 20, host clock; CUDA events {event_ms:.3f} "
+          f"ms), {out['mpix_s']:.3f} Mpix/s, overflow {int(overflow)}, "
+          f"launches {launches}, loss {float(loss):.4f} on {card}", flush=True)
+    report["bench3d_phase"] = out
+    return out
+
+
 FWD_STAGES = ("carve", "unets", "select_head", "binning", "kernel", "untile",
               "loss")
 BWD_STAGES = ("loss_bwd", "kernel_bwd", "backward")
 
 
-def train_phase(report):
-    """train_from_config at the north-star configuration, then the backward
-    kernel against its plain version on a step's own arrays."""
+def train_phase(report, key, config, k_steps):
+    """train_from_config at ``config`` for ``k_steps`` steps, then steps
+    timed whole, then the backward kernel against its plain version on a
+    step's own arrays."""
     import torch
 
     from pose_splatter_torch.ops import rasterize_kernels as K
@@ -550,19 +742,17 @@ def train_phase(report):
     )
     from pose_splatter_torch.data.dataset import FrameLoader
 
-    out_dir = ROOT / "build" / "train"  # checkpoints, if a run saves any
-    config = north_star_config(project_directory=str(out_dir))
-    assert (config.lr, config.img_lambda, config.ssim_lambda) == (1e-4, 0.5, 0.1)
-    Ks, Es = ring_cameras(VIEWS, W, H, focal=800.0, radius=0.6)
+    Wc, Hc = config.render_width, config.render_height
+    Ks, Es = ring_cameras(VIEWS, Wc, Hc, focal=800.0 * Wc / W, radius=0.6)
     grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
     t0 = time.perf_counter()
-    frames = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0),
-                              (0.055, 0.032, 0.028), K_STEPS + K_EXTRA, seed=1)
+    frames = synthetic_frames(Ks, Es, Hc, Wc, grid.reshape(-1, 3).mean(0),
+                              (0.055, 0.032, 0.028), k_steps + K_EXTRA, seed=1)
     observed = [v for v in range(VIEWS) if v not in config.holdout_views]
     train = FrameSet(frames, observed, seed=2)
     valid = FrameSet({k: v[:2] for k, v in frames.items()}, observed,
                      split="valid")
-    print(f"train data: {K_STEPS + K_EXTRA} synthetic frames x {VIEWS} views "
+    print(f"[{key}] train data: {k_steps + K_EXTRA} synthetic frames x {VIEWS} views "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
 
@@ -572,7 +762,7 @@ def train_phase(report):
     t0 = time.perf_counter()
     with stages.record() as rec:
         state, losses, _ = train_from_config(
-            config, epochs=1, max_batches=K_STEPS, batch_size=1, seed=0,
+            config, epochs=1, max_batches=k_steps, batch_size=1, seed=0,
             device="cuda", cameras=(Ks, Es), datasets=(train, valid))
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
@@ -593,7 +783,7 @@ def train_phase(report):
             loss=rec.values["loss"][i].item(),
             overflow=float(rec.values["optimizer"][i]["overflow"]),
             gaussians=int(rec.values["select_head"][i]["valid"].sum())))
-        print(f"train step {i}: loss {steps[-1]['loss']:.6f} | forward "
+        print(f"[{key}] train step {i}: loss {steps[-1]['loss']:.6f} | forward "
               f"{fwd:.2f} ms, backward {bwd:.2f} ms, optimizer "
               f"{st['optimizer']:.2f} ms | "
               + " ".join(f"{k} {v:.2f}" for k, v in st.items())
@@ -604,15 +794,15 @@ def train_phase(report):
            for k in ("step_ms", "forward_ms", "backward_ms")}
     med_stages = {k: float(np.median([s["stages_ms"][k] for s in warm]))
                   for k in warm[0]["stages_ms"]}
-    print(f"main path: train_from_config {n} steps in {t_train:.2f} s; "
+    print(f"[{key}] main path: train_from_config {n} steps in {t_train:.2f} s; "
           f"recorded steps after warm-up (median of {len(warm)}): step "
           f"{med['step_ms']:.2f} ms = forward {med['forward_ms']:.2f} + "
           f"backward {med['backward_ms']:.2f} + optimizer | stage medians "
           + " ".join(f"{k} {v:.2f}" for k, v in med_stages.items())
           + f" ms; launches {launches}", flush=True)
-    if n != K_STEPS or state.step != K_STEPS:
+    if n != k_steps or state.step != k_steps:
         raise AssertionError(f"{n} steps recorded, state at {state.step}")
-    if min(launches.values()) < K_STEPS:
+    if min(launches.values()) < k_steps:
         raise AssertionError(f"a kernel was not launched every step: {launches}")
     if not all(np.isfinite(s["loss"]) for s in steps) or not np.isfinite(
             losses[-1]).all():
@@ -640,7 +830,7 @@ def train_phase(report):
         extra.append(dict(step_ms=ms, loss=float(m["total"]),
                           fwd_launches=K.composite_instances.launches - before[0],
                           bwd_launches=K.composite_instances_bwd.launches - before[1]))
-    print("unrecorded steps: " + "; ".join(
+    print(f"[{key}] unrecorded steps: " + "; ".join(
         f"{e['step_ms']:.2f} ms, loss {e['loss']:.6f}, composite_fwd "
         f"{e['fwd_launches']} / composite_bwd {e['bwd_launches']} launch(es)"
         for e in extra), flush=True)
@@ -669,13 +859,22 @@ def train_phase(report):
     fwd_store_ms = cuda_ms(
         lambda: K.composite_instances(*fargs, save_tbounds=True), 20, 2)
     fwd_plain_ms = cuda_ms(lambda: K.composite_instances_ref(*fargs), 2)
+    # The forward too, against its plain version on the step's arrays.
+    fg = K.composite_instances(*fargs, save_tbounds=True)
+    fr = K.composite_instances_ref(*fargs, save_tbounds=True)
+    fwd_err = max(float((x - y).abs().max()) for x, y in
+                  ((fg[0], fr[0]), (fg[1], fr[1]), (fg[3], fr[3])))
+    if not fwd_err <= TOL or not torch.equal(fg[2], fr[2]):
+        raise AssertionError(f"[{key}] forward kernel disagrees on the step's "
+                             f"arrays ({fwd_err}) or jstop does")
     main_kernel = dict(max_abs_err=float((d - d_ref).abs().max()), rel_err=rel,
                        rel_tol=tol, ms=ms, plain_ms=plain_ms,
                        longest_tile_alone_ms=hot_ms, fwd_ms=fwd_ms,
+                       fwd_max_abs_err=fwd_err,
                        fwd_store_ms=fwd_store_ms, fwd_plain_ms=fwd_plain_ms,
                        fwd_bound=kernel_bound(astarts, counts, jstop, tile, G),
                        **bound)
-    print(f"main-path composite_bwd: max|kernel-plain| "
+    print(f"[{key}] main-path composite_bwd ({bargs[10]}): max|kernel-plain| "
           f"{main_kernel['max_abs_err']:.3g}, {rel:.3g} of each column's "
           f"largest (tol {tol:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.2f} "
           f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
@@ -684,19 +883,19 @@ def train_phase(report):
           f"the longest walk is {bound['max_tile_chunks']} chunks and takes "
           f"{hot_ms:.4f} ms alone | composite_fwd on the same instances "
           f"{fwd_ms:.4f} ms, with the store {fwd_store_ms:.4f} ms, plain "
-          f"{fwd_plain_ms:.2f} ms", flush=True)
+          f"{fwd_plain_ms:.2f} ms, max|kernel-plain| {fwd_err:.3g}", flush=True)
     if not rel <= tol:
         raise AssertionError(f"main-path backward kernel disagrees ({rel})")
     if max(s["gaussians"] for s in steps) < N_GAUSS:
         raise AssertionError("selection never reached max_n")
-    report["train_phase"] = dict(
+    report[key] = dict(
         launches=launches, train_from_config_s=t_train, steps=steps,
         median_after_warmup=med, stage_medians_ms=med_stages,
         unrecorded_steps=extra, epoch_losses=losses,
         main_path_kernel=main_kernel,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"train peak device memory {report['train_phase']['peak_memory_gb']:.2f}"
-          f" GB", flush=True)
+    print(f"[{key}] train peak device memory "
+          f"{report[key]['peak_memory_gb']:.2f} GB", flush=True)
     return launches, main_kernel
 
 
@@ -715,10 +914,11 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    names = ("composite_fwd", "composite_bwd")
+    names = ("composite_fwd", "composite_bwd", "dyngather")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:  # one nvcc a source, at once
         libs = dict(zip(names, ex.map(_build.build, names)))
@@ -731,29 +931,81 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    report = dict(card=card, build_s=build_s)
-    kp = kernel_phase(report)
-    eval_launches, sk = slice_phase(report)
-    train_launches, tk = train_phase(report)
+    report = dict(card=card, build_s=build_s, phase_s={})
+    res = {}
 
+    def run(phase, fn, *args):
+        t = time.perf_counter()
+        res[phase] = fn(report, *args)
+        report["phase_s"][phase] = time.perf_counter() - t
+        print(f"phase {phase}: {report['phase_s'][phase]:.1f} s", flush=True)
+
+    run("dyngather", dyngather_phase)
+    run("kernels", kernel_phase)
+    run("eval2d", eval_phase, "slice_phase", north_star_config(), "ellipse")
+    cfg2 = north_star_config(project_directory=str(ROOT / "build" / "train"))
+    assert (cfg2.lr, cfg2.img_lambda, cfg2.ssim_lambda) == (1e-4, 0.5, 0.1)
+    run("train2d", train_phase, "train_phase", cfg2, K_STEPS)
+    run("eval3d", eval_phase, "eval3d_phase", config_3d(), "conic")
+    cfg3 = config_3d(project_directory=str(ROOT / "build" / "train3d"))
+    assert (cfg3.lr, cfg3.img_lambda, cfg3.ssim_lambda) == (1e-4, 0.5, 0.0)
+    run("train3d", train_phase, "train3d_phase", cfg3, K_STEPS_3D)
+    run("bench3d", bench3d_phase, card)
+    report["total_s"] = time.perf_counter() - t_start
+
+    (dg_launches, dg), kp = res["dyngather"], res["kernels"]
+    (eval_launches, sk), (train_launches, tk) = res["eval2d"], res["train2d"]
+    (e3_launches, e3), (t3_launches, t3) = res["eval3d"], res["train3d"]
+    b3 = res["bench3d"]
     fwd_errs = [kp[m]["max_abs_err"] for m in kp] + [
-        kp[m]["tbounds_max_abs_err"] for m in kp] + [sk["max_abs_err"]]
-    bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [tk["max_abs_err"]]
+        kp[m]["tbounds_max_abs_err"] for m in kp] + [
+        sk["max_abs_err"], tk["fwd_max_abs_err"], e3["max_abs_err"],
+        t3["fwd_max_abs_err"]]
+    bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
+        tk["max_abs_err"], t3["max_abs_err"]]
+
+    def gather_row(name, line):
+        a0, a1 = dg[name][0], dg[name][1]
+        return dict(
+            name=name, route="cuda",
+            source="pose_splatter_torch/csrc/dyngather.cu",
+            replaces=f"scripts/dbg_dyngather_micro.py:{line}",
+            launches=dg_launches["gather_sum" if a0["reps"] > 1 else "gather"],
+            max_abs_err=max(a0["max_abs_err"], a1["max_abs_err"]),
+            ms=a0["ms"], plain_ms=a0["plain_ms"], bound_ms=a0["bound_ms"],
+            bound_by=a0["bound_by"], library_ms=a0["library_ms"],
+            reps=a0["reps"], ms_axis1=a1["ms"], plain_ms_axis1=a1["plain_ms"],
+            library_ms_axis1=a1["library_ms"], wrapper_ms=a0["wrapper_ms"])
+
     kernels = {"kernels": [
         dict(name="composite_fwd", route="cuda",
              source="pose_splatter_torch/csrc/composite_fwd.cu",
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:425",
              launches=train_launches["composite_fwd"],
-             launches_eval_path=eval_launches, max_abs_err=max(fwd_errs),
+             launches_eval_path=eval_launches,
+             launches_3d_eval=e3_launches,
+             launches_3d_train=t3_launches["composite_fwd"],
+             launches_bench3d=b3["launches"]["composite_fwd"],
+             max_abs_err=max(fwd_errs),
              ms=sk["ms"], plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
-             bound_by=sk["bound_by"], library_ms=None),
+             bound_by=sk["bound_by"], library_ms=None,
+             ms_3d_eval=e3["ms"], plain_ms_3d_eval=e3["plain_ms"],
+             bound_ms_3d_eval=e3["bound_ms"], bound_by_3d_eval=e3["bound_by"],
+             ms_3d_train=t3["fwd_ms"], plain_ms_3d_train=t3["fwd_plain_ms"],
+             bound_ms_3d_train=t3["fwd_bound"]["bound_ms"]),
         dict(name="composite_bwd", route="cuda",
              source="pose_splatter_torch/csrc/composite_bwd.cu",
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",
              launches=train_launches["composite_bwd"],
+             launches_3d_train=t3_launches["composite_bwd"],
+             launches_bench3d=b3["launches"]["composite_bwd"],
              max_abs_err=max(bwd_errs), ms=tk["ms"], plain_ms=tk["plain_ms"],
              bound_ms=tk["bound_ms"], bound_by=tk["bound_by"],
-             library_ms=None)]}
+             library_ms=None, ms_3d_train=t3["ms"],
+             plain_ms_3d_train=t3["plain_ms"], bound_ms_3d_train=t3["bound_ms"],
+             bound_by_3d_train=t3["bound_by"]),
+        gather_row("dyngather_sum", 37),
+        gather_row("dyngather_once", 75)]}
     report["result"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,12 +1,13 @@
 """PoseSplatter: feed-forward Gaussian splatting from multi-view silhouettes.
 
-Counterpart of ``pose_splatter_tpu/models/pose_splatter.py`` for the 2D
-forward, in eval and train mode:
+Counterpart of ``pose_splatter_tpu/models/pose_splatter.py``, in eval
+and train mode:
 
     carve → residual 3D U-Nets → Gaussian selection → per-voxel MLP head →
-    (view-anchored) projection → 2D rasterization.
-
-The 3D Gaussian mode comes in a later change.
+    3D: pose transform of world-space Gaussians → projection, depth sort
+        and conic compositing (``ops/rasterize.py::rasterize``);
+    2D: (view-anchored) projection → ellipse compositing
+        (``rasterize_2d``).
 """
 
 from __future__ import annotations
@@ -21,12 +22,13 @@ import torch.nn.functional as F
 
 from pose_splatter_torch.models.unet3d import NewStats, Unet3D, flax_init_
 from pose_splatter_torch.ops.carving import carve_volume
-from pose_splatter_torch.ops.rasterize import rasterize_2d
+from pose_splatter_torch.ops.rasterize import rasterize, rasterize_2d
 from pose_splatter_torch.utils import stages
 from pose_splatter_torch.utils.device import resolve_device
 from pose_splatter_torch.utils.geometry import (
     create_3d_grid,
     project_points,
+    rotate_quats_by_yaw,
     yaw_rotation,
 )
 
@@ -176,7 +178,7 @@ def init_means2d_center(net: PoseSplatterNet, W: int, H: int,
 
 
 class PoseSplatter(nn.Module):
-    """Cameras, voxel grid and the net, with the 2D forward.
+    """Cameras, voxel grid and the net, with the 3D and 2D forwards.
 
     Built in eval mode on ``device`` (default ``"cuda"``; raises without a
     CUDA device). Weights are initialized from ``seed`` without touching
@@ -216,9 +218,7 @@ class PoseSplatter(nn.Module):
         super().__init__()
         if volume_idx is None:
             raise ValueError("volume_idx is required")
-        if gaussian_mode == "3d":
-            raise NotImplementedError("the 3D Gaussian mode is not ported yet")
-        if gaussian_mode != "2d":
+        if gaussian_mode not in ("2d", "3d"):
             raise ValueError(f"unknown gaussian_mode {gaussian_mode!r}")
         dev = resolve_device(device)
         self.W, self.H = W, H
@@ -253,7 +253,7 @@ class PoseSplatter(nn.Module):
         self.register_buffer("grid", grid, persistent=False)
         self.input_size = tuple(int(i2 - i1) for (i1, i2) in volume_idx)
         self.voxel_size = ell / grid_size
-        self.num_gaussian_params = 9
+        self.num_gaussian_params = 14 if gaussian_mode == "3d" else 9
         self.sigma_cutoff = float(self.gaussian_config.get("sigma_cutoff", 3.0))
         # Max tiles one Gaussian may span in the binning (overflow counted);
         # the model's default is 16 (pose_splatter.py:287-295).
@@ -262,7 +262,9 @@ class PoseSplatter(nn.Module):
         # Anchor each 2D Gaussian at the projection of its pose-transformed
         # voxel center into the requested view; the MLP's means become a
         # pixel delta (a framework extension of the JAX package).
-        self.view_anchored_2d = bool(self.gaussian_config.get("view_anchored", False))
+        self.view_anchored_2d = (
+            bool(self.gaussian_config.get("view_anchored", False))
+            and gaussian_mode == "2d")
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -293,7 +295,8 @@ class PoseSplatter(nn.Module):
 
     # ------------------------------------------------------------------
     def gaussians_from_volume(self, vol_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """vol_flat [out_ch, N] → dict of pixel-space Gaussian parameters."""
+        """vol_flat [out_ch, N] → dict of Gaussian parameters: world-space
+        in 3D mode (``pose_splatter.py:397-414``), pixel-space in 2D."""
         sel = select_gaussians(
             vol_flat[0], self.min_n, self.max_n, self.prob_threshold,
             self.mask_threshold, self.mask_threshold_delta)
@@ -304,6 +307,20 @@ class PoseSplatter(nn.Module):
         logit_opac = torch.logit(torch.clamp(
             (1.0 / (1.0 - pt)) * (sel.probs - pt), 1e-6, 1.0 - 1e-6))
         scale_param = self.net.scale[0]
+        if self.gaussian_mode == "3d":
+            quats, scales, _opac, colors, delta_means = torch.split(
+                net_out, [4, 3, 1, 3, 3], dim=1)
+            colors = torch.clamp(torch.sigmoid(colors), self.color_clip[0],
+                                 self.color_clip[1])
+            base = self.grid.reshape(-1, 3)[sel.indices]
+            return dict(
+                means=base + 2.0 * self.voxel_size * torch.tanh(delta_means),
+                log_scales=scales + scale_param,
+                quats=quats,
+                colors=colors,
+                logit_opacities=logit_opac,
+                valid=sel.valid,
+            )
         means2d, scales2d, rotation, colors, _opac = torch.split(
             net_out, [2, 2, 1, 3, 1], dim=1)
         colors = torch.clamp(torch.sigmoid(colors), self.color_clip[0],
@@ -321,11 +338,29 @@ class PoseSplatter(nn.Module):
         return out
 
     # ------------------------------------------------------------------
+    def apply_pose_transform_3d(self, g: Dict[str, torch.Tensor], angle, p_3d):
+        """Yaw-rotate and translate world-space Gaussians: means by the yaw
+        matrix, quaternions by the yaw quaternion (``pose_splatter.py:439-445``)."""
+        angle = self._tensor(angle)
+        g = dict(g)
+        g["means"] = g["means"] @ yaw_rotation(angle).T + self._tensor(p_3d)
+        g["quats"] = rotate_quats_by_yaw(g["quats"], angle)
+        return g
+
+    # ------------------------------------------------------------------
     def render(self, g: Dict[str, torch.Tensor], view_idx):
         """Render to the cameras in ``view_idx`` (int or [B] ints).
         Returns rgb [B,H,W,3], alpha [B,H,W], overflow [] (instances
         dropped by finite binning capacity)."""
         view_idx = torch.as_tensor(view_idx, device=self.device).reshape(-1).long()
+        if self.gaussian_mode == "3d":
+            return rasterize(
+                g["means"], g["quats"], torch.exp(g["log_scales"]),
+                torch.sigmoid(g["logit_opacities"]), g["colors"],
+                self.viewmats[view_idx], self.Ks[view_idx], self.W, self.H,
+                valid=g["valid"], backgrounds=self.background_color,
+                tile_shape=self.tile_shape, tile_expand=self.tile_expand,
+                mode=self.render_mode, return_overflow=True)
         B = view_idx.shape[0]
         if "anchor_means" in g:
             pix = project_points(g["anchor_means"], self.Ks[view_idx],
@@ -377,10 +412,27 @@ class PoseSplatter(nn.Module):
                                            new_stats)
         stages.mark("unets")
         g = self.gaussians_from_volume(vol_flat)
-        if "anchor_means" in g:
+        if self.gaussian_mode == "3d":
+            g = self.apply_pose_transform_3d(g, angle, p_3d)
+        elif "anchor_means" in g:
             # Pose-transform the anchors only (deltas/scales stay as-is).
             rot = yaw_rotation(self._tensor(angle))
             g["anchor_means"] = g["anchor_means"] @ rot.T + self._tensor(p_3d)
         stages.mark("select_head", g)
         rgb, alpha, overflow = self.render(g, view_idx)
         return rgb, alpha, new_stats, overflow
+
+    # ------------------------------------------------------------------
+    def splat(self, means, quats, scales, opacities, colors, viewmats, Ks,
+              width: int, height: int, valid=None, radius_clip: float = 2.0):
+        """Render given world-space Gaussians (linear scales, opacities in
+        [0, 1]) to cameras viewmats [B,4,4] / Ks [B,3,3] at any size
+        (``pose_splatter.py:598-634``): the background by transmittance,
+        the colour clipped to [0, 1]. Returns rgb [B,H,W,3], alpha [B,H,W]."""
+        rgb, alpha = rasterize(
+            means, quats, scales, opacities, colors, viewmats, Ks, width,
+            height, valid=valid, backgrounds=None, near_plane=0.01,
+            far_plane=1e10, radius_clip=radius_clip, mode=self.render_mode,
+            tile_shape=self.tile_shape, tile_expand=self.tile_expand)
+        rgb = rgb + (1.0 - alpha[..., None]) * self.background_color
+        return torch.clamp(rgb, 0.0, 1.0), alpha

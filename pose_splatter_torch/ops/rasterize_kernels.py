@@ -8,7 +8,8 @@ multiple of G rows (``_build_instances``, ``gather_instances``). Two finite
 capacities are truncated and COUNTED, never silent: Gaussians spanning more
 than ``expand`` tiles, and segment rows past the array's ``mcap`` rows.
 ``gather_instances``' backward reduces instance-row gradients back onto the
-Gaussians with a gather, as the JAX package's custom VJP does.
+Gaussians with a gather, as the JAX package's custom VJP does, and
+``permute_rows`` (the 3D depth order) gathers by the inverse permutation.
 
 Device side: :func:`composite_instances` walks each tile's segment and can
 store each chunk's entry transmittance; :func:`composite_instances_bwd`
@@ -216,6 +217,28 @@ def gather_instances(packed: torch.Tensor, dest: torch.Tensor,
     indices, whose order on the card changes from run to run.
     """
     return _GatherInstances.apply(packed, dest, src, mcap)
+
+
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, order):
+        ctx.save_for_backward(order)
+        return x.index_select(0, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        (order,) = ctx.saved_tensors
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=order.device))
+        return g.index_select(0, inv), None
+
+
+def permute_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``x[order]`` for a permutation ``order`` of x's rows
+    (``rasterize_pallas.py:246-269``). The backward gathers the gradient by
+    the inverse permutation, built by one scatter of unique indices, where
+    indexing's own backward would be a scatter-add."""
+    return _PermuteRows.apply(x, order)
 
 
 # ----------------------------------------------------------------------------

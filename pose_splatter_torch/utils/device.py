@@ -1,8 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection and CUDA-event timing for the port's entry points."""
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, Union
 
 import torch
 
@@ -24,3 +24,18 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+def cuda_ms(fn: Callable[[], object], iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds a call of ``fn`` over ``iters`` calls, timed with
+    CUDA events on the current stream after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

@@ -1,7 +1,7 @@
 """Voxel grids, pinhole projection and yaw rotations on tensors.
 
-Counterpart of ``pose_splatter_tpu/utils/geometry.py``. The quaternion
-helpers serve only the 3D path and are not ported yet.
+Counterpart of ``pose_splatter_tpu/utils/geometry.py``, the quaternion
+helpers of the 3D path included.
 """
 
 from __future__ import annotations
@@ -79,3 +79,61 @@ def transform_grid(grid: torch.Tensor, center: torch.Tensor, angle) -> torch.Ten
     rot = yaw_rotation(angle, device=grid.device)
     out = torch.einsum("abci,ji->abcj", grid, rot)
     return out + center.reshape(1, 1, 1, 3)
+
+
+# ----------------------------------------------------------------------------
+# Quaternions (w, x, y, z), as gsplat and the MLP head order them.
+# ----------------------------------------------------------------------------
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + eps)
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, broadcasting over leading dims."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """[...,4] unit quaternion → [...,3,3] rotation matrix."""
+    w, x, y, z = q.unbind(-1)
+    r00 = 1 - 2 * (y * y + z * z)
+    r01 = 2 * (x * y - w * z)
+    r02 = 2 * (x * z + w * y)
+    r10 = 2 * (x * y + w * z)
+    r11 = 1 - 2 * (x * x + z * z)
+    r12 = 2 * (y * z - w * x)
+    r20 = 2 * (x * z - w * y)
+    r21 = 2 * (y * z + w * x)
+    r22 = 1 - 2 * (x * x + y * y)
+    return torch.stack([
+        torch.stack([r00, r01, r02], -1),
+        torch.stack([r10, r11, r12], -1),
+        torch.stack([r20, r21, r22], -1),
+    ], -2)
+
+
+def yaw_quat(angle: Union[float, torch.Tensor],
+             device: Optional[torch.device] = None) -> torch.Tensor:
+    """Unit quaternion of a rotation about +z by ``angle``."""
+    half = 0.5 * torch.as_tensor(angle, dtype=torch.float32, device=device)
+    c, s = torch.cos(half), torch.sin(half)
+    z = torch.zeros_like(c)
+    return torch.stack([c, z, z, s], -1)
+
+
+def rotate_quats_by_yaw(quats: torch.Tensor, angle) -> torch.Tensor:
+    """Left-compose a z-rotation onto [N,4] quaternions and make w >= 0
+    (``geometry.py:153-163``). The sign flip at w = 0 is a jump: its
+    gradient is undefined there."""
+    q_yaw = yaw_quat(angle, device=quats.device)
+    out = quat_multiply(q_yaw[None, :], quat_normalize(quats))
+    sign = torch.where(out[..., :1] < 0, -1.0, 1.0)
+    return out * sign

@@ -1,7 +1,10 @@
-"""The port's CUDA forward and backward compositors against their plain
-PyTorch versions, on the card: tile shapes and chunk sizes beyond the main
-path's, empty and ragged segments, early stop, the forward's ``tbounds``
-store, the launch counts and the wrappers' checks.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. The forward and backward compositors: tile shapes and chunk sizes
+beyond the main path's, empty and ragged segments, early stop, the
+forward's ``tbounds`` store, instance arrays of projected 3D Gaussians, the
+3D rasterizer's gradients against the CPU's, the launch counts and the
+wrappers' checks. The dynamic gather: both axes at the probe's shape,
+bit-equal, odd shapes and the index check.
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
 (the kernel has no CPU mode). On a machine with an NVIDIA GPU and ``nvcc``:
@@ -12,11 +15,14 @@ Every test is marked ``cuda`` and skips where no CUDA device is present
 machine need not have; this file imports only the port.)
 """
 
+import numpy as np
 import pytest
 import torch
 
+from pose_splatter_torch.ops import dyngather as tdg
 from pose_splatter_torch.ops import rasterize as tr
 from pose_splatter_torch.ops import rasterize_kernels as tk
+from pose_splatter_torch.utils import stages
 
 torch.set_num_threads(1)
 
@@ -208,3 +214,166 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(dev):
         with pytest.raises((ValueError, TypeError)):
             tk.composite_instances_bwd(*case)
     assert tk.composite_instances_bwd.launches == before
+
+
+# ----------------------------------------------------------------------------
+# Compositors on projected 3D Gaussians (conic mode, depth order).
+# ----------------------------------------------------------------------------
+
+def _scene_3d(n=3000, seed=0):
+    """3D Gaussians seen by two cameras at 288x256 (the 3D configuration's
+    render size), as numpy float32 arrays: a dense horizontal band across
+    the whole image width, so whole (8, 128) tiles saturate and stop
+    early."""
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(-0.35, 0.35, n), rng.normal(0, 0.02, n),
+                      rng.normal(1.2, 0.06, n)], 1)
+    c, s = np.cos(0.4), np.sin(0.4)
+    E2 = np.array([[c, 0, s, -0.4], [0, 1, 0, 0], [-s, 0, c, 0.1],
+                   [0, 0, 0, 1]])
+    K = np.array([[500.0, 0, 144], [0, 500.0, 128], [0, 0, 1]])
+    g = dict(means=means, quats=rng.normal(size=(n, 4)),
+             scales=np.exp(rng.normal(-4.5, 0.3, (n, 3))),
+             opacities=rng.uniform(0.3, 0.95, n),
+             colors=rng.uniform(0, 1, (n, 3)),
+             viewmats=np.stack([np.eye(4), E2]), Ks=np.stack([K, K]))
+    return {k: v.astype(np.float32) for k, v in g.items()}
+
+
+def _rasterize_3d(g, dev, grad=False):
+    t = {k: torch.from_numpy(v).to(dev).requires_grad_(
+        grad and k not in ("viewmats", "Ks")) for k, v in g.items()}
+    out = tr.rasterize(t["means"], t["quats"], t["scales"], t["opacities"],
+                       t["colors"], t["viewmats"], t["Ks"], 288, 256,
+                       backgrounds=torch.ones(3, device=dev))
+    return t, out
+
+
+def test_compositors_on_projected_3d_instances(dev):
+    """The instance arrays that the 3D rasterizer itself binned (depth
+    order, conic packing, two cameras in one launch)."""
+    with torch.no_grad(), stages.record("cuda") as rec:
+        _rasterize_3d(_scene_3d(), dev)
+    b = rec.values["binning"][0]
+    args = (b.inst, b.astarts, b.counts, b.origins, tr.DEFAULT_TILE,
+            tr.DEFAULT_CHUNK, "conic")
+    got = tk.composite_instances(*args, save_tbounds=True)
+    ref = tk.composite_instances_ref(*args, save_tbounds=True)
+    for x, y in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        torch.testing.assert_close(x, y, atol=TOL, rtol=0)
+    assert torch.equal(got[2], ref[2])
+    n_steps = (b.counts + tr.DEFAULT_CHUNK - 1) // tr.DEFAULT_CHUNK
+    assert (got[2] < n_steps).any()  # the dense cluster stops early
+    gen = torch.Generator().manual_seed(3)
+    P = tr.DEFAULT_TILE[0] * tr.DEFAULT_TILE[1]
+    nt = b.counts.numel()
+    bargs = (b.inst, got[3], b.astarts, b.counts, b.origins, got[2],
+             torch.randn((nt, 3, P), generator=gen).to(dev),
+             torch.randn((nt, P), generator=gen).to(dev), tr.DEFAULT_TILE,
+             tr.DEFAULT_CHUNK, "conic")
+    d = tk.composite_instances_bwd(*bargs)
+    d_ref = tk.composite_instances_bwd_ref(*bargs)
+    scale = d_ref.abs().amax(dim=0).clamp_min(1e-30)
+    assert ((d - d_ref).abs() <= 1e-4 * scale).all()
+    assert float(d.abs().max()) > 0
+
+
+def test_rasterize_3d_gradients_on_the_card_match_the_cpu(dev):
+    """rasterize's forward and backward through both kernels against the
+    plain versions on the CPU: gradients within 3e-4 of each tensor's
+    largest entry. The images are held in the test above on shared
+    instance arrays: here the projections run on two devices, whose exp
+    and sqrt may differ in the last bit, and a pixel-Gaussian pair within
+    that of a gate may flip (a step of up to 1/255 at one pixel, too small
+    to show in a summed gradient)."""
+    g = _scene_3d(1200, 1)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        fwd, bwd = tk.composite_instances.launches, tk.composite_instances_bwd.launches
+        t, (rgb, alpha) = _rasterize_3d(g, d, grad=True)
+        ((rgb ** 2).sum() + (alpha ** 2).sum()).backward()
+        launched = (tk.composite_instances.launches - fwd,
+                    tk.composite_instances_bwd.launches - bwd)
+        assert launched == ((1, 1) if d.type == "cuda" else (0, 0))
+        outs.append([rgb.detach().cpu(), alpha.detach().cpu()]
+                    + [t[k].grad.cpu() for k in ("means", "quats", "scales",
+                                                 "opacities", "colors")])
+    assert float(outs[0][1].max()) > 0.9
+    for a, b in zip(outs[0][2:], outs[1][2:]):
+        assert ((a - b).abs() <= 3e-4 * b.abs().max()).all()
+
+
+# ----------------------------------------------------------------------------
+# The dynamic gather (the dyngather probe kernels).
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("reps", [1, 2, 32])
+def test_dyngather_kernel_equals_plain(dev, axis, reps):
+    """At the probe's [2304, 128]: sequential float32 sums on both sides,
+    so equal, not close."""
+    gen = torch.Generator().manual_seed(10 * axis + reps)
+    S, L = 2304, 128
+    dim = S if axis == 0 else L
+    tab = torch.randn((S, L), generator=gen).to(dev)
+    idx = torch.randint(0, dim - (reps > 1), (S, L), generator=gen,
+                        dtype=torch.int32).to(dev)
+    wrapper = tdg.gather if reps == 1 else tdg.gather_sum
+    before = wrapper.launches
+    got = (tdg.gather(tab, idx, axis) if reps == 1
+           else tdg.gather_sum(tab, idx, axis, reps))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, tdg.gather_sum_ref(tab, idx, axis, reps))
+
+
+@pytest.mark.parametrize("shape,axis,reps", [
+    ((2304, 128), 0, 32),  # row broadcast: every lane of a row reads one row
+    ((37, 300), 1, 5),     # a row wider than the block: threads loop
+    ((5, 20000), 0, 3),    # many columns, few rows
+    ((300, 7), 1, 2),      # a row narrower than a warp
+])
+def test_dyngather_other_shapes(dev, shape, axis, reps):
+    gen = torch.Generator().manual_seed(7)
+    S, L = shape
+    dim = shape[axis]
+    tab = torch.randn(shape, generator=gen).to(dev)
+    if S == 2304:
+        idx = torch.randint(0, dim - 1, (S, 1), generator=gen,
+                            dtype=torch.int32).repeat(1, L).to(dev)
+    else:
+        idx = torch.randint(0, dim - 1, shape, generator=gen,
+                            dtype=torch.int32).to(dev)
+    got = tdg.gather_sum(tab, idx, axis, reps)
+    assert torch.equal(got, tdg.gather_sum_ref(tab, idx, axis, reps))
+
+
+def test_dyngather_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    tab = torch.zeros((64, 128), device=dev)
+    idx = torch.zeros((64, 128), dtype=torch.int32, device=dev)
+    before = tdg.gather_sum.launches
+    edge = idx.clone()
+    edge[3, 4] = 63
+    with pytest.raises(IndexError):  # 63 + offset 1 is off the table
+        tdg.gather_sum(tab, edge, 0, 2)
+    with pytest.raises(IndexError):
+        tdg.gather_sum(tab, idx - 1, 1, 1)
+    with pytest.raises(ValueError):
+        tdg.gather_sum(tab, idx.cpu(), 0, 1)
+    with pytest.raises(ValueError):  # axis 1 rows beyond shared memory
+        tdg.gather_sum(torch.zeros((1, 20000), device=dev),
+                       torch.zeros((1, 20000), dtype=torch.int32, device=dev),
+                       1, 1)
+    assert tdg.gather_sum.launches == before
+
+
+def test_dyngather_probe_counts_every_launch(dev):
+    """The probe's timed launches go through the counted ``launch``: its
+    count is one checked call, the warm-up and the timed loop."""
+    from pose_splatter_torch.scripts import dbg_dyngather_micro as probe
+
+    before = tdg.gather_sum.launches
+    line = probe.probe(0, "dim0 random", np.random.default_rng(0).integers(
+        0, probe.S - 1, (probe.S, probe.L)), np.random.default_rng(1), "card")
+    assert tdg.gather_sum.launches - before == 1 + probe.WARMUP + probe.ITERS
+    assert line["ms"] > 0
