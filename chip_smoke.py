@@ -27,7 +27,10 @@ Builds every CUDA kernel of the port from the sources in the checkout
    the user-facing entry points, with the forward kernel's launch count read
    around them, then a per-frame breakdown from the forward's own stage
    marks (``pose_splatter_torch.utils.stages``) and a kernel-vs-plain check
-   on the instance arrays that the forward binned;
+   on the instance arrays that the forward binned, with how the kernel
+   spread over the card there (``split_stats``: chunks walked and evaluated
+   past a tile's stop, scratch bytes, CUDA launches a call by
+   ``torch.profiler``, ms beside the one-block-a-tile kernel's it replaced);
 5. 2D train slice: ``train_from_config`` at the same configuration (fresh
    start, lr 1e-4, img_lambda 0.5, ssim_lambda 0.1, batch 1) for K steps on
    synthetic frames, with both kernels' launch counts read around it and
@@ -42,7 +45,12 @@ Builds every CUDA kernel of the port from the sources in the checkout
    depth sort and both compositors in conic mode;
 7. bench shape: the 3D rasterizer alone at 576x512 with 16000 Gaussians
    (``bench.py::run_3d``'s seed-0 cluster, f = 900), forward and backward
-   through means, quats, scales, opacities and colours, ms and Mpix/s.
+   through means, quats, scales, opacities and colours, ms and Mpix/s;
+   then both compositors alone on the arrays it binned (``split_stats``);
+8. profiled: what ``torch.profiler`` measures, deferred to after every
+   timed phase: each compositor call's device operations and their device
+   time (``split_stats``), and the card's busy share of one more train
+   step in each mode and of a bench-shape fwd+bwd (``device_busy``).
 
 Prints one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -94,6 +102,7 @@ EPS32 = 2.0 ** -24  # float32 unit roundoff
 K_STEPS = 8
 K_EXTRA = 3
 K_STEPS_3D = 6
+EXTRA_PASSES = 3  # passes over the K_EXTRA frames timed whole
 
 
 def card_line() -> str:
@@ -126,8 +135,10 @@ def kernel_bound(astarts, counts, jstop, tile_shape, G):
     nbytes = walked * 64 + T * (4 + 4 + 8) + T * P * 16 + T * 4
     ops = walked * P * OPS_PER_PAIR
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    # One block walks a tile's segment alone, so the longest segment (in
-    # chunks) is a floor on the kernel's time whatever the total work.
+    # The longest segment (in chunks) is reported beside the busy tiles: it
+    # set the time of the earlier one-block-a-tile kernel, which walked a
+    # tile's segment in one block. The kernel spreads a tile's chunks over
+    # blocks now; only its scans still walk a segment in order.
     return dict(walked_rows=walked, bytes=nbytes, ops=ops,
                 busy_tiles=int((counts > 0).sum()),
                 max_tile_chunks=int(((counts + G - 1) // G).max()),
@@ -157,6 +168,120 @@ def bwd_bound(inst, astarts, counts, jstop, tile_shape, G):
                 max_tile_chunks=int(jstop.max()),
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_events(prof):
+    """The device operations (kernels, memsets, copies) a profile saw."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.events()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA]
+
+
+def profile_call(fn, reps: int = 3):
+    """The CUDA kernels (and memsets) one call of ``fn`` runs on the card,
+    with their device time, from ``torch.profiler`` over ``reps`` calls
+    after a warm-up call: ``{"per_call": n, "kernels": {name: [count a
+    call, device us a call]}}``, or None where the profiler saw nothing
+    on the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in device_events(prof):
+        name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
+        k = kernels.setdefault(name[:60], [0.0, 0.0])
+        k[0] += 1 / reps
+        k[1] += ev.time_range.elapsed_us() / reps
+    if not kernels:
+        return None
+    return dict(per_call=round(sum(k[0] for k in kernels.values()), 3),
+                kernels=kernels)
+
+
+def device_busy(fn):
+    """Wall ms of one call of ``fn`` under ``torch.profiler`` (ending in a
+    synchronize) and the ms its device operations took (one stream, so
+    they do not overlap): how far the host holds the card back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    evs = device_events(prof)
+    busy = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+    return dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                kernels=len(evs))
+
+
+# CUDA-event ms of the one-block-a-tile compositors that the chunk-parallel
+# ones replaced, on the main-path arrays, two runs each as PERF.md section 6
+# records them (H100 80GB HBM3, 700 W), printed beside this run's.
+ONE_BLOCK_A_TILE_MS = {
+    ("eval2d", "composite_fwd"): (5.4803, 5.5510),
+    ("train2d", "composite_fwd"): (3.0326, 3.0327),
+    ("train2d", "composite_bwd"): (19.5362, 19.5358),
+    ("eval3d", "composite_fwd"): (5.4285, 5.5898),
+    ("train3d", "composite_fwd"): (4.6496, 4.6494),
+    ("train3d", "composite_bwd"): (22.6759, 22.6276),
+}
+
+
+def split_stats(cell, kernel, n_rows, counts, jstop, tile_shape, G, ms,
+                bound_ms, fn, later):
+    """How a compositor call on a main-path array set spread over the
+    card: the array's chunks, the chunks walked, the chunks the forward's
+    products evaluated past a tile's stop, the scratch, the CUDA launches a
+    call, and its ms beside the one-block-a-tile kernel's and the bound.
+    The launches come from ``profile_call`` in a closure appended to
+    ``later``, which fills them in and prints the line once every timed
+    phase has run."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+
+    steps = (counts.long() + G - 1) // G
+    walked = int(torch.minimum(jstop.long(), steps).sum())
+    past = int(steps.sum()) - walked if kernel == "composite_fwd" else 0
+    out = dict(
+        chunks=n_rows // G, walked_chunks=walked, past_jstop_chunks=past,
+        past_jstop_share=past / max(walked, 1),
+        scratch_bytes=K.scratch_bytes(n_rows, counts.numel(), G, tile_shape,
+                                      backward=kernel == "composite_bwd"),
+        launches_per_call=None, kernels=None,
+        ms=ms, one_block_ms=ONE_BLOCK_A_TILE_MS.get((cell, kernel)),
+        bound_ms=bound_ms)
+
+    def profiled():
+        prof = profile_call(fn)
+        if prof:
+            out.update(launches_per_call=prof["per_call"],
+                       kernels=prof["kernels"])
+        phases = ("; ".join(f"{n} x{c:g} {us:.1f} us" for n, (c, us) in
+                            prof["kernels"].items()) if prof else
+                  "not measured")
+        before = ("n/a" if out["one_block_ms"] is None
+                  else " / ".join(f"{x:.4f}" for x in out["one_block_ms"]))
+        print(f"[{cell}] {kernel} split: {out['chunks']} chunks in the "
+              f"array, {walked} walked, {past} evaluated past jstop "
+              f"({100 * out['past_jstop_share']:.1f} % of the walked), "
+              f"scratch {out['scratch_bytes'] / 1e6:.2f} MB, CUDA launches a "
+              f"call {out['launches_per_call']} ({phases}) | {ms:.4f} ms, "
+              f"one block a tile {before} ms, bound {bound_ms:.4f} ms",
+              flush=True)
+
+    later.append(profiled)
+    return out
 
 
 def bwd_error(got, ref, jstop, tile_shape, G):
@@ -340,7 +465,7 @@ def torch_default_weights(net, seed: int = 0):
     net.load_state_dict(cpu.state_dict())
 
 
-def eval_phase(report, key, config, mode):
+def eval_phase(report, key, config, mode, later):
     """The eval forward of ``config`` through ``render_images_in_memory``
     and ``make_eval_step`` with seeded random weights, then per-frame
     stages and the forward kernel against its plain version (``mode``:
@@ -509,9 +634,13 @@ def eval_phase(report, key, config, mode):
                    b.origins[hot:hot + 1].contiguous()) + args[4:]
             hot_ms = cuda_ms(lambda: K.composite_instances(*one), iters=20,
                              warmup=2)
+            split = split_stats(
+                CELLS[key], "composite_fwd", b.inst.shape[0], b.counts, jstop,
+                R.DEFAULT_TILE, R.DEFAULT_CHUNK, ms, bound["bound_ms"],
+                lambda: K.composite_instances(*args), later)
             slice_kernel = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 longest_tile_alone_ms=hot_ms, mode=mode,
-                                **bound)
+                                split=split, **bound)
             print(f"[{key}] main-path composite_fwd ({mode}): max|kernel-plain| {err:.3g} (tol "
                   f"{TOL}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
@@ -648,7 +777,7 @@ def dyngather_phase(report):
     return launches, rows
 
 
-def bench3d_phase(report, card):
+def bench3d_phase(report, card, later):
     """The 3D rasterizer alone at bench.py's shape: 576x512, 16000
     Gaussians of ``run_3d``'s seed-0 cluster, f = 900, one camera; forward
     and backward of sum(rgb^2) + sum(alpha^2) through every Gaussian
@@ -657,6 +786,7 @@ def bench3d_phase(report, card):
 
     from pose_splatter_torch.ops import rasterize as R
     from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.utils import stages
 
     rng = np.random.default_rng(0)
     means = np.concatenate([rng.normal(0, 0.06, (N_GAUSS, 2)),
@@ -708,23 +838,56 @@ def bench3d_phase(report, card):
         runs.append(1e3 * (time.perf_counter() - t0))
     ms = float(np.median(runs))
     event_ms = cuda_ms(fwd_bwd, iters=20, warmup=0)
+    # Both kernels alone on the arrays this shape bins (one recorded run).
+    with stages.record() as rec:
+        fwd_bwd()
+    bargs = rec.values["kernel_bwd"][0]
+    inst, tb, astarts, counts, origins, jstop = bargs[:6]
+    tile, G = bargs[8], bargs[9]
+    fargs = (inst, astarts, counts, origins, tile, G, "conic")
+    fwd_ms = cuda_ms(lambda: K.composite_instances(*fargs, save_tbounds=True),
+                     20, 2)
+    bwd_ms = cuda_ms(lambda: K.composite_instances_bwd(*bargs), 20, 2)
+    kernels = dict(
+        fwd=split_stats("bench3d", "composite_fwd", inst.shape[0], counts,
+                        jstop, tile, G, fwd_ms,
+                        kernel_bound(astarts, counts, jstop, tile, G)["bound_ms"],
+                        lambda: K.composite_instances(*fargs, save_tbounds=True),
+                        later),
+        bwd=split_stats("bench3d", "composite_bwd", inst.shape[0], counts,
+                        jstop, tile, G, bwd_ms,
+                        bwd_bound(inst, astarts, counts, jstop, tile, G)["bound_ms"],
+                        lambda: K.composite_instances_bwd(*bargs), later))
+    busy = {}
     out = dict(loss=float(loss), overflow=int(overflow), launches=launches,
                ms_median=ms, ms_runs=runs, event_ms=event_ms,
-               mpix_s=H * W / ms / 1e3, card=card)
+               mpix_s=H * W / ms / 1e3, card=card, kernels=kernels,
+               device_busy=busy)
     print(f"[bench3d] 3D rasterize fwd+bwd at {W}x{H}, {N_GAUSS} Gaussians: "
           f"{ms:.3f} ms (median of 20, host clock; CUDA events {event_ms:.3f} "
           f"ms), {out['mpix_s']:.3f} Mpix/s, overflow {int(overflow)}, "
           f"launches {launches}, loss {float(loss):.4f} on {card}", flush=True)
+
+    def bench_busy():
+        busy.update(device_busy(fwd_bwd))
+        print(f"[bench3d] under torch.profiler the card was busy "
+              f"{busy['busy_ms']:.2f} ms of a {busy['wall_ms']:.2f} ms "
+              f"fwd+bwd", flush=True)
+
+    later.append(bench_busy)
     report["bench3d_phase"] = out
     return out
 
 
 FWD_STAGES = ("carve", "unets", "select_head", "binning", "kernel", "untile",
               "loss")
+# The main-path array sets, by the report key of the phase that makes them.
+CELLS = dict(slice_phase="eval2d", train_phase="train2d",
+             eval3d_phase="eval3d", train3d_phase="train3d")
 BWD_STAGES = ("loss_bwd", "kernel_bwd", "backward")
 
 
-def train_phase(report, key, config, k_steps):
+def train_phase(report, key, config, k_steps, later):
     """train_from_config at ``config`` for ``k_steps`` steps, then steps
     timed whole, then the backward kernel against its plain version on a
     step's own arrays."""
@@ -755,6 +918,9 @@ def train_phase(report, key, config, k_steps):
     print(f"[{key}] train data: {k_steps + K_EXTRA} synthetic frames x {VIEWS} views "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
+    # What is still allocated (an earlier phase's model kept for its
+    # deferred profile) is not this phase's.
+    base_bytes = torch.cuda.memory_allocated()
 
     # ---- the main path, with the launch counts zeroed around it ----
     K.composite_instances.launches = 0
@@ -817,9 +983,9 @@ def train_phase(report, key, config, k_steps):
     step_fn = make_train_step(model, state.optimizer, config.img_lambda,
                               config.ssim_lambda)
     batches = iter(FrameLoader(train, batch_size=1, shuffle=False, prefetch=0))
+    extra_batches = [next(batches) for _ in range(K_EXTRA)]
     extra = []
-    for _ in range(K_EXTRA):
-        batch = next(batches)
+    for batch in extra_batches * EXTRA_PASSES:
         torch.cuda.synchronize()
         before = (K.composite_instances.launches,
                   K.composite_instances_bwd.launches)
@@ -830,12 +996,23 @@ def train_phase(report, key, config, k_steps):
         extra.append(dict(step_ms=ms, loss=float(m["total"]),
                           fwd_launches=K.composite_instances.launches - before[0],
                           bwd_launches=K.composite_instances_bwd.launches - before[1]))
+    whole_ms = float(np.median([e["step_ms"] for e in extra]))
     print(f"[{key}] unrecorded steps: " + "; ".join(
         f"{e['step_ms']:.2f} ms, loss {e['loss']:.6f}, composite_fwd "
         f"{e['fwd_launches']} / composite_bwd {e['bwd_launches']} launch(es)"
-        for e in extra), flush=True)
+        for e in extra) + f"; median {whole_ms:.2f} ms", flush=True)
     if any(e["fwd_launches"] != 1 or e["bwd_launches"] != 1 for e in extra):
         raise AssertionError("a train step did not launch each kernel once")
+    busy = {}
+
+    def step_busy():
+        busy.update(device_busy(lambda: step_fn(state, extra_batches[0])))
+        print(f"[{key}] one more step under torch.profiler: the card was "
+              f"busy {busy['busy_ms']:.2f} ms of its {busy['wall_ms']:.2f} ms "
+              f"({100 * busy['busy_share']:.1f} %), {busy['kernels']} device "
+              f"operations", flush=True)
+
+    later.append(step_busy)
 
     # ---- the backward kernel on the last recorded step's own arrays ----
     bargs = rec.values["kernel_bwd"][-1]
@@ -867,12 +1044,19 @@ def train_phase(report, key, config, k_steps):
     if not fwd_err <= TOL or not torch.equal(fg[2], fr[2]):
         raise AssertionError(f"[{key}] forward kernel disagrees on the step's "
                              f"arrays ({fwd_err}) or jstop does")
+    fwd_bound = kernel_bound(astarts, counts, jstop, tile, G)
+    split = split_stats(CELLS[key], "composite_bwd", inst.shape[0], counts,
+                        jstop, tile, G, ms, bound["bound_ms"],
+                        lambda: K.composite_instances_bwd(*bargs), later)
+    fwd_split = split_stats(CELLS[key], "composite_fwd", inst.shape[0], counts,
+                            jstop, tile, G, fwd_ms, fwd_bound["bound_ms"],
+                            lambda: K.composite_instances(*fargs), later)
     main_kernel = dict(max_abs_err=float((d - d_ref).abs().max()), rel_err=rel,
                        rel_tol=tol, ms=ms, plain_ms=plain_ms,
                        longest_tile_alone_ms=hot_ms, fwd_ms=fwd_ms,
                        fwd_max_abs_err=fwd_err,
                        fwd_store_ms=fwd_store_ms, fwd_plain_ms=fwd_plain_ms,
-                       fwd_bound=kernel_bound(astarts, counts, jstop, tile, G),
+                       fwd_bound=fwd_bound, split=split, fwd_split=fwd_split,
                        **bound)
     print(f"[{key}] main-path composite_bwd ({bargs[10]}): max|kernel-plain| "
           f"{main_kernel['max_abs_err']:.3g}, {rel:.3g} of each column's "
@@ -891,9 +1075,10 @@ def train_phase(report, key, config, k_steps):
     report[key] = dict(
         launches=launches, train_from_config_s=t_train, steps=steps,
         median_after_warmup=med, stage_medians_ms=med_stages,
-        unrecorded_steps=extra, epoch_losses=losses,
+        unrecorded_steps=extra, unrecorded_median_ms=whole_ms,
+        step_device_busy=busy, epoch_losses=losses,
         main_path_kernel=main_kernel,
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        peak_memory_gb=(torch.cuda.max_memory_allocated() - base_bytes) / 1e9)
     print(f"[{key}] train peak device memory "
           f"{report[key]['peak_memory_gb']:.2f} GB", flush=True)
     return launches, main_kernel
@@ -928,8 +1113,9 @@ def main() -> int:
     for name, lib in libs.items():
         log = Path(str(lib) + ".log")
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "smem")):
+                print(f"  ptxas {name}: {line.strip()[:120]}")
 
     report = dict(card=card, build_s=build_s, phase_s={})
     res = {}
@@ -942,15 +1128,20 @@ def main() -> int:
 
     run("dyngather", dyngather_phase)
     run("kernels", kernel_phase)
-    run("eval2d", eval_phase, "slice_phase", north_star_config(), "ellipse")
+    # torch.profiler runs only after every timed phase (``later``), so that
+    # it cannot perturb what is timed.
+    later = []
+    run("eval2d", eval_phase, "slice_phase", north_star_config(), "ellipse",
+        later)
     cfg2 = north_star_config(project_directory=str(ROOT / "build" / "train"))
     assert (cfg2.lr, cfg2.img_lambda, cfg2.ssim_lambda) == (1e-4, 0.5, 0.1)
-    run("train2d", train_phase, "train_phase", cfg2, K_STEPS)
-    run("eval3d", eval_phase, "eval3d_phase", config_3d(), "conic")
+    run("train2d", train_phase, "train_phase", cfg2, K_STEPS, later)
+    run("eval3d", eval_phase, "eval3d_phase", config_3d(), "conic", later)
     cfg3 = config_3d(project_directory=str(ROOT / "build" / "train3d"))
     assert (cfg3.lr, cfg3.img_lambda, cfg3.ssim_lambda) == (1e-4, 0.5, 0.0)
-    run("train3d", train_phase, "train3d_phase", cfg3, K_STEPS_3D)
-    run("bench3d", bench3d_phase, card)
+    run("train3d", train_phase, "train3d_phase", cfg3, K_STEPS_3D, later)
+    run("bench3d", bench3d_phase, card, later)
+    run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
 
     (dg_launches, dg), kp = res["dyngather"], res["kernels"]
@@ -992,7 +1183,9 @@ def main() -> int:
              ms_3d_eval=e3["ms"], plain_ms_3d_eval=e3["plain_ms"],
              bound_ms_3d_eval=e3["bound_ms"], bound_by_3d_eval=e3["bound_by"],
              ms_3d_train=t3["fwd_ms"], plain_ms_3d_train=t3["fwd_plain_ms"],
-             bound_ms_3d_train=t3["fwd_bound"]["bound_ms"]),
+             bound_ms_3d_train=t3["fwd_bound"]["bound_ms"],
+             cuda_launches_a_call=sk["split"]["launches_per_call"],
+             past_jstop_share_3d_eval=e3["split"]["past_jstop_share"]),
         dict(name="composite_bwd", route="cuda",
              source="pose_splatter_torch/csrc/composite_bwd.cu",
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",
@@ -1003,7 +1196,8 @@ def main() -> int:
              bound_ms=tk["bound_ms"], bound_by=tk["bound_by"],
              library_ms=None, ms_3d_train=t3["ms"],
              plain_ms_3d_train=t3["plain_ms"], bound_ms_3d_train=t3["bound_ms"],
-             bound_by_3d_train=t3["bound_by"]),
+             bound_by_3d_train=t3["bound_by"],
+             cuda_launches_a_call=tk["split"]["launches_per_call"]),
         gather_row("dyngather_sum", 37),
         gather_row("dyngather_once", 75)]}
     report["result"] = kernels

@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the repository root (listed in ``.gitignore``) the first time a kernel is
 launched, never at import, and loaded with ``ctypes``. The library's file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.
+name carries a hash of the source, the headers beside it and the flags, so
+an edited source is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -44,7 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library's path, named by a hash of the source, every header in
+    ``csrc/`` (a source may include any of them) and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -18,7 +18,11 @@ instance row's gradient. On a CUDA tensor each launches its hand-written
 kernel (``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``); on a CPU
 tensor it runs its plain PyTorch version (``composite_instances_ref``,
 ``composite_instances_bwd_ref``). There is no fallback between the two.
-:func:`composite_with_grad` joins them into an autograd function.
+The kernels spread each tile's chunks over blocks of their own and carry
+the transmittance forward and the suffix backward between them by
+per-pixel scans. Their first phase (``csrc/composite_common.cuh``) tells
+each chunk of the instance array its tile; :func:`chunk_map` is its plain
+version. :func:`composite_with_grad` joins them into an autograd function.
 
 Feature packing (16 float32 columns per row):
     conic / 3D:   0 mean_x  1 mean_y  2 conic_a  3 conic_b  4 conic_c
@@ -424,6 +428,64 @@ def composite_instances_bwd_ref(inst, tbounds, astarts, counts, origins,
     return dinst
 
 
+def chunk_map(astarts, counts, n_rows: int, chunk: int):
+    """Which tile each chunk of an instance array belongs to: the plain
+    version of phase 0 of both compositor kernels
+    (``csrc/composite_common.cuh``: one block a tile writes its chunks'
+    entries over a map filled with −1, in scratch of the kernel's own).
+
+    astarts, counts [T] int (astarts multiples of ``chunk``, non-empty
+    segments disjoint, as :func:`_build_instances` lays them out); n_rows
+    the array's rows, a multiple of ``chunk``. Returns, on the inputs'
+    device:
+
+        chunk_tile [n_rows/chunk] int32: the tile whose segment holds
+                   chunk c (rows [c·chunk, (c+1)·chunk)), or −1 (padding);
+        chunk_j    [n_rows/chunk] int32: the chunk's index in that segment,
+                   or −1;
+        rows       [T] int32: each segment's rows inside the array (0 for a
+                   segment that starts outside it, cut at its end).
+
+    Each non-empty tile's start chunk is scattered to a map of its own
+    (empty tiles to distinct dump slots past the end, so the indices are
+    unique), a running maximum carries the latest start forward over the
+    chunks, and a chunk past its tile's last one maps to −1.
+    """
+    G = chunk
+    nc = n_rows // G
+    nt = astarts.shape[0]
+    dev = astarts.device
+    start = astarts.long()
+    cnt = counts.long()
+    inside = (start >= 0) & (start < n_rows) & (cnt > 0)
+    rows = torch.where(inside, torch.minimum(cnt, n_rows - start),
+                       torch.zeros_like(cnt))
+    first = torch.where(rows > 0, start // G,
+                        nc + torch.arange(nt, device=dev))
+    head = torch.full((nc + nt,), -1, dtype=torch.long, device=dev)
+    head.scatter_(0, first, torch.arange(nt, device=dev))
+    c = torch.arange(nc, device=dev)
+    last = torch.cummax(torch.where(head[:nc] >= 0, c, -1), 0).values
+    tile = head[last.clamp(min=0)]
+    j = c - first[tile.clamp(min=0)]
+    live = (last >= 0) & (j < (rows[tile.clamp(min=0)] + G - 1) // G)
+    none = torch.full_like(c, -1)
+    return (torch.where(live, tile, none).int(),
+            torch.where(live, j, none).int(), rows.int())
+
+
+def scratch_bytes(n_rows: int, n_tiles: int, chunk: int,
+                  tile_shape: Tuple[int, int], backward: bool = False) -> int:
+    """Device scratch one kernel call allocates beside its outputs: the
+    chunk map (two int32 a chunk and one a tile), then the forward's ``cp``
+    (which holds the entry T on the eval path) and partial sums
+    [R/G, 4, P], or the backward's ``tot`` and ``sfx`` [R/G, P] each."""
+    nc = n_rows // chunk
+    P = tile_shape[0] * tile_shape[1]
+    per_chunk = (2 if backward else 5) * P * 4
+    return nc * (8 + per_chunk) + 4 * n_tiles
+
+
 def _kernel_fn(name: str, n_ptrs: int):
     """The C entry ``name`` of ``csrc/<name>.cu``: (inst, n_rows, then
     ``n_ptrs`` pointers, n_tiles, th, tw, G, conic, stream)."""
@@ -484,8 +546,10 @@ def composite_instances(inst, astarts, counts, origins,
     chunk's entry transmittance, for :func:`composite_instances_bwd`).
 
     CPU tensors run :func:`composite_instances_ref`; CUDA tensors launch
-    ``csrc/composite_fwd.cu`` (built at first use) and count the launch in
-    ``composite_instances.launches``.
+    ``csrc/composite_fwd.cu`` (built at first use; a memset and five
+    kernels, one block a chunk of the array or a tile, see its source) and
+    count the call in ``composite_instances.launches``. Non-empty segments
+    must be disjoint, as the binning lays them out.
     """
     if mode not in ("conic", "ellipse"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -505,14 +569,19 @@ def composite_instances(inst, astarts, counts, origins,
     out = (rgb, alpha, jstop, tbounds) if save_tbounds else (rgb, alpha, jstop)
     if nt == 0:
         return out  # nothing to launch, nothing counted
-    fn = _kernel_fn("composite_fwd", 7)
+    nc = R // chunk
+    scratch = torch.empty(2 * nc + nt, dtype=torch.int32, device=dev)  # map
+    cp = torch.empty((nc, P), dtype=torch.float32, device=dev)
+    part = torch.empty((nc, 4, P), dtype=torch.float32, device=dev)
+    fn = _kernel_fn("composite_fwd", 10)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(inst.data_ptr(), R, astarts.data_ptr(), counts.data_ptr(),
-                 origins.data_ptr(), rgb.data_ptr(), alpha.data_ptr(),
-                 jstop.data_ptr(), tbounds.data_ptr() if save_tbounds else None,
-                 nt, tile_shape[0], tile_shape[1], chunk, int(mode == "conic"),
-                 stream)
+                 origins.data_ptr(), scratch.data_ptr(), rgb.data_ptr(),
+                 alpha.data_ptr(), jstop.data_ptr(),
+                 tbounds.data_ptr() if save_tbounds else None, cp.data_ptr(),
+                 part.data_ptr(), nt, tile_shape[0], tile_shape[1], chunk,
+                 int(mode == "conic"), stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
     composite_instances.launches += 1
@@ -530,8 +599,9 @@ def composite_instances_bwd(inst, tbounds, astarts, counts, origins, jstop,
     g_alpha [T,P] (other arguments as :func:`composite_instances`).
 
     CPU tensors run :func:`composite_instances_bwd_ref`; CUDA tensors
-    launch ``csrc/composite_bwd.cu`` (built at first use) and count the
-    launch in ``composite_instances_bwd.launches``.
+    launch ``csrc/composite_bwd.cu`` (built at first use; a memset and four
+    kernels, see its source) and count the call in
+    ``composite_instances_bwd.launches``.
     """
     if mode not in ("conic", "ellipse"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -553,12 +623,17 @@ def composite_instances_bwd(inst, tbounds, astarts, counts, origins, jstop,
     dinst = torch.zeros_like(inst)
     if nt == 0:
         return dinst  # nothing to launch, nothing counted
-    fn = _kernel_fn("composite_bwd", 8)
+    nc = R // chunk
+    scratch = torch.empty(2 * nc + nt, dtype=torch.int32, device=dev)  # map
+    tot = torch.empty((nc, P), dtype=torch.float32, device=dev)
+    sfx = torch.empty_like(tot)
+    fn = _kernel_fn("composite_bwd", 11)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(inst.data_ptr(), R, tbounds.data_ptr(), astarts.data_ptr(),
                  counts.data_ptr(), origins.data_ptr(), jstop.data_ptr(),
-                 g_rgb.data_ptr(), g_alpha.data_ptr(), dinst.data_ptr(), nt,
+                 g_rgb.data_ptr(), g_alpha.data_ptr(), scratch.data_ptr(),
+                 dinst.data_ptr(), tot.data_ptr(), sfx.data_ptr(), nt,
                  tile_shape[0], tile_shape[1], chunk, int(mode == "conic"),
                  stream)
     if err != 0:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. The forward and backward compositors: tile shapes and chunk sizes
-beyond the main path's, empty and ragged segments, early stop, the
+beyond the main path's, empty and ragged segments, early stop, a tile of
+over 200 chunks spread over as many blocks, bit-identical reruns, the
 forward's ``tbounds`` store, instance arrays of projected 3D Gaussians, the
 3D rasterizer's gradients against the CPU's, the launch counts and the
 wrappers' checks. The dynamic gather: both axes at the probe's shape,
@@ -214,6 +215,83 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(dev):
         with pytest.raises((ValueError, TypeError)):
             tk.composite_instances_bwd(*case)
     assert tk.composite_instances_bwd.launches == before
+
+
+def _hot_tile_scene(dev, mode, n=15000, seed=4):
+    """One camera at 64x256 ((8, 128) tiles, G = 64) whose first tile holds
+    over 200 chunks (the main path's most loaded tile walks 200-218), as
+    small faint Gaussians that leave T >= 1e-4 on part of the tile; in
+    conic mode a band of large opaque ones across the next tile row down
+    makes that row stop part-way along its segments."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.rand(*shape, generator=gen)
+
+    hot = rnd(n) < 0.95
+    x = torch.where(hot, 4 + 120 * rnd(n), 256 * rnd(n))
+    y = torch.where(hot, 1 + 6 * rnd(n), 10 + 4 * rnd(n))
+    means = torch.stack([x, y], -1)[None]
+    sig = torch.where(hot[:, None], 0.4 + 0.4 * rnd(n, 2), 3 + 2 * rnd(n, 2))
+    opac = torch.where(hot, 0.03 + 0.1 * rnd(n), 0.8 + 0.19 * rnd(n))
+    colors = rnd(n, 3)[None]
+    radius = torch.where(hot, torch.full((n,), 0.9), 3.0 * sig.amax(1))
+    if mode == "ellipse":
+        packed = tk.pack_ellipse(means, sig[None], (6 * rnd(n) - 3)[None],
+                                 opac[None], colors, radius[None])
+    else:
+        th = 6 * rnd(n) - 3
+        c, s = torch.cos(th), torch.sin(th)
+        ia, ib = 1 / sig[:, 0] ** 2, 1 / sig[:, 1] ** 2
+        conic = torch.stack([c * c * ia + s * s * ib, c * s * (ia - ib),
+                             s * s * ia + c * c * ib], -1)
+        packed = tk.pack_conic(means, conic[None], opac[None], colors,
+                               radius[None])
+    valid = torch.ones((1, n), dtype=torch.bool)
+    b = tr.bin_instances(packed.to(dev), means.to(dev), radius[None].to(dev),
+                         valid.to(dev), 64, 256, tr.DEFAULT_TILE,
+                         tr.DEFAULT_CHUNK, 16)
+    return b.inst, b.astarts, b.counts, b.origins, tr.DEFAULT_TILE, \
+        tr.DEFAULT_CHUNK, mode
+
+
+@pytest.mark.parametrize("mode", ["ellipse", "conic"])
+def test_kernels_on_a_hot_tile_match_plain_and_rerun_bit_equal(dev, mode):
+    """The split's long carries: a tile of over 200 chunks (spread over as
+    many blocks, T and the suffix carried between them) and, in conic mode,
+    tiles that stop part-way. Both kernels against their plain versions,
+    jstop equal; reruns bit-identical."""
+    args = _hot_tile_scene(dev, mode)
+    G = args[5]
+    n_steps = (args[2].long() + G - 1) // G
+    assert int(n_steps.max()) >= 200
+    got = tk.composite_instances(*args, save_tbounds=True)
+    ref = tk.composite_instances_ref(*args, save_tbounds=True)
+    for x, y in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        torch.testing.assert_close(x, y, atol=TOL, rtol=0)
+    assert torch.equal(got[2], ref[2])
+    jstop = got[2].long()
+    hot = int(n_steps.argmax())
+    assert jstop[hot] == n_steps[hot]  # the long segment is walked whole
+    if mode == "conic":
+        assert ((jstop > 1) & (jstop < n_steps - 1)).any()
+    again = tk.composite_instances(*args, save_tbounds=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+    gen = torch.Generator().manual_seed(5)
+    nt, P = args[2].numel(), 1024
+    bargs = (args[0], got[3], args[1], args[2], args[3], got[2],
+             torch.randn((nt, 3, P), generator=gen).to(dev),
+             torch.randn((nt, P), generator=gen).to(dev)) + args[4:]
+    d = tk.composite_instances_bwd(*bargs)
+    d_ref = tk.composite_instances_bwd_ref(*bargs)
+    # chip_smoke.py::bwd_error's tolerance: float32 roundings of sums over
+    # P pixels of suffixes over up to all the tile's walked rows.
+    tol = 4 * 2.0 ** -24 * (P * int(jstop.max()) * G) ** 0.5
+    scale = d_ref.abs().amax(dim=0).clamp_min(1e-30)
+    assert float(((d - d_ref).abs().amax(dim=0) / scale).max()) <= tol
+    assert torch.isfinite(d).all() and float(d.abs().max()) > 0
+    assert torch.equal(d, tk.composite_instances_bwd(*bargs))
 
 
 # ----------------------------------------------------------------------------
