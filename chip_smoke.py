@@ -2,17 +2,25 @@
 """Run the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gather-only
 
 Builds every CUDA kernel of the port from the sources in the checkout
-(``nvcc``, one process a source, all at once), then:
+(``nvcc``, one process a source, all at once; it fails if ptxas reports a
+spill), then:
 
 1. card: prints the GPU's name and power limit and the build time;
 2. dyngather: the probe entry point (``pose_splatter_torch.scripts.
    dbg_dyngather_micro``: ``probe_correct`` on both axes and the three
-   probe lines) with both gather wrappers' launches read around it; then
-   the kernel against its plain version, bit for bit, at [2304, 128] on
-   both axes for reps 32 and 1, timed with CUDA events beside
-   ``torch.take_along_dim``;
+   probe lines) with both gather wrappers' launches read around it; then,
+   at [2304, 128], on both axes for reps 32 and 1 and on the probe's three
+   index patterns: the kernel against its plain version bit for bit, the
+   path the C entry reports, and its time four ways beside
+   ``torch.take_along_dim``'s: (a) host-launched (CUDA events around
+   back-to-back calls of ``dyngather.launch``, so the host's Python sets
+   it), (b) on the device (200 launches captured in one CUDA graph,
+   replayed between CUDA events), (c) the kernel's own duration from
+   ``torch.profiler`` (phase 8), and (e) the launch floor, (b) for a
+   one-element ``zero_()``;
 3. kernel phase: the forward compositor (with and without its ``tbounds``
    store) and the backward compositor on synthetic instance arrays at the
    full-width shape (6 views x 576x512, 16000 Gaussians) in both modes,
@@ -48,9 +56,16 @@ Builds every CUDA kernel of the port from the sources in the checkout
    through means, quats, scales, opacities and colours, ms and Mpix/s;
    then both compositors alone on the arrays it binned (``split_stats``);
 8. profiled: what ``torch.profiler`` measures, deferred to after every
-   timed phase: each compositor call's device operations and their device
-   time (``split_stats``), and the card's busy share of one more train
-   step in each mode and of a bench-shape fwd+bwd (``device_busy``).
+   timed phase: the gather kernel's duration, each compositor call's
+   device operations and their device time (``split_stats``), and the
+   card's busy share of one more train step in each mode and of a
+   bench-shape fwd+bwd (``device_busy``).
+
+``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 8
+for the gather. It prints the gather rows and the card, not the final
+``ok`` line. The script measures the port of the tree it sits in, so a
+copy of it placed at the root of another commit's checkout measures that
+commit's kernel the same way.
 
 Prints one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -60,7 +75,9 @@ result line, when there is no CUDA device or any phase fails. Details go to
 
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +114,10 @@ OPS_PER_PAIR = 20
 # quadratic form's coefficients to cos, sin, sx, sy) are left out.
 OPS_PER_PAIR_BWD = 49
 EPS32 = 2.0 ** -24  # float32 unit roundoff
+# The gather's device time: launches captured in one CUDA graph, replays
+# of it timed (``graph_ms``).
+GRAPH_LAUNCHES = 200
+GRAPH_REPLAYS = 10
 # Train slices: steps driven through train_from_config, then steps timed
 # whole outside any recording.
 K_STEPS = 8
@@ -697,10 +718,79 @@ def dyngather_bound(S: int, L: int, reps: int):
                 bound_by="operations" if t_ops > t_bytes else "bytes")
 
 
-def dyngather_phase(report):
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES,
+             replays: int = GRAPH_REPLAYS) -> float:
+    """Device ms a call of ``fn``: ``launches`` calls captured in one CUDA
+    graph after a warm-up call, the graph replayed ``replays`` times between
+    CUDA events, over ``launches * replays``. The host enqueues one graph a
+    replay, so the Python of the launch path is not in the number."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def try_graph_ms(fn):
+    """``(graph_ms(fn), None)``, or ``(None, why)`` where the capture refused
+    a launch: the line then says so, and the profiler's time (c) stands
+    alone, never in place of this one."""
+    import torch
+
+    try:
+        return graph_ms(fn), None
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, f"capture failed: {str(e).splitlines()[0][:160]}"
+
+
+def profiled_ms(fn, name: str, calls: int = 50):
+    """(c): the mean device duration of the kernels whose name holds
+    ``name`` over ``calls`` calls of ``fn``, from ``torch.profiler``'s
+    ``key_averages()``, in ms a kernel, with their count; (None, 0) where
+    the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in hits)
+    us = sum(e.device_time_total for e in hits)
+    return (us / count / 1e3 if count and us else None), count
+
+
+def fmt_ms(x, digits: int = 5) -> str:
+    return "not measured" if x is None else f"{x:.{digits}f} ms"
+
+
+def dyngather_phase(report, later):
     """The probe entry point with the gather wrappers' launches read around
-    it, then the kernel against its plain version (bit for bit) and its
-    time beside the plain version's and ``torch.take_along_dim``'s."""
+    it, then, for the four rows (reps 32 and 1, axes 0 and 1, random
+    indices) and the probe's three patterns at [2304, 128]: the kernel
+    against its plain version (bit for bit), the path it took, and its time
+    four ways, beside ``torch.take_along_dim``'s and a launch floor:
+    (a) host-launched ms a launch (``cuda_ms`` over ``launch``), (b) device
+    ms a launch (``graph_ms``), (c) the kernel's own duration from
+    ``torch.profiler`` (deferred to ``later``), (d) (a) and (b) for
+    ``torch.take_along_dim`` on a precomputed int64 index, (e) (b) for a
+    one-element ``zero_()``."""
     import torch
 
     from pose_splatter_torch.ops import dyngather as D
@@ -725,56 +815,154 @@ def dyngather_phase(report):
 
     dev = torch.device("cuda")
     S, L = probe.S, probe.L
+    zero = torch.zeros(1, device=dev)
+    floor = dict(device_ms=graph_ms(zero.zero_),
+                 host_ms=cuda_ms(zero.zero_, 500, 20))
+    print(f"[dyngather] (e) launch floor, a one-element zero_(): device "
+          f"{floor['device_ms']:.5f} ms a launch (CUDA graph of "
+          f"{GRAPH_LAUNCHES} x {GRAPH_REPLAYS}), host-launched "
+          f"{floor['host_ms']:.5f} ms", flush=True)
     rng = np.random.default_rng(5)
-    rows = {}
-    for name, reps in (("dyngather_sum", probe.REPS), ("dyngather_once", 1)):
-        per_axis = {}
-        for axis in (0, 1):
-            dim = S if axis == 0 else L
-            tab = torch.from_numpy(rng.random((S, L), dtype=np.float32)).to(dev)
-            idx = torch.from_numpy(rng.integers(
-                0, dim - (reps > 1), (S, L)).astype(np.int32)).to(dev)
-
-            wrapped_fn = D.gather if reps == 1 else D.gather_sum
-
-            def wrapped():
-                if reps == 1:
-                    return D.gather(tab, idx, axis)
-                return D.gather_sum(tab, idx, axis, reps)
-
-            got = wrapped()
-            ref = D.gather_sum_ref(tab, idx, axis, reps)
-            torch.cuda.synchronize()
-            equal = bool(torch.equal(got, ref))
-            out = torch.empty_like(tab)
-            idx_long = idx.long()
-            r = dict(
-                axis=axis, reps=reps, bit_equal=equal,
-                max_abs_err=float((got - ref).abs().max()),
-                # The kernel alone (the wrapper checked these inputs above).
-                ms=cuda_ms(lambda: D.launch(wrapped_fn, tab, idx, out, axis,
-                                             reps), 500, 20),
-                # The wrapper, with its index check's read-back.
-                wrapper_ms=cuda_ms(wrapped, 100, 5),
-                plain_ms=cuda_ms(lambda: D.gather_sum_ref(tab, idx, axis, reps),
-                                 20, 2),
-                library_ms=(cuda_ms(lambda: torch.take_along_dim(
-                    tab, idx_long, dim=axis), 500, 20) if reps == 1 else None),
-                **dyngather_bound(S, L, reps))
-            per_axis[axis] = r
-            lib = ("" if r["library_ms"] is None else
-                   f", torch.take_along_dim {r['library_ms']:.5f} ms")
-            print(f"[dyngather] {name} axis {axis} reps {reps} [{S}, {L}]: "
-                  f"bit-equal {equal} | kernel {r['ms']:.5f} ms, wrapper "
-                  f"{r['wrapper_ms']:.5f} ms, plain {r['plain_ms']:.4f} ms"
-                  f"{lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
-                  flush=True)
-            if not equal:
-                raise AssertionError(f"dyngather {name} axis {axis}: kernel "
-                                     "differs from the plain version")
-        rows[name] = per_axis
-    report["dyngather_phase"] = dict(launches=launches, probe=res, rows=rows)
+    # (row, pattern, axis, reps): the table's four rows draw random
+    # indices; the probe's three patterns are its own, at its reps.
+    cases = [(name, "random", axis, reps)
+             for name, reps in (("dyngather_sum", probe.REPS),
+                                ("dyngather_once", 1)) for axis in (0, 1)]
+    cases += [("probe", "rowbcast" if i == 1 else "random", axis, probe.REPS)
+              for i, axis in enumerate((0, 0, 1))]
+    rows, patterns = {}, []
+    for name, pattern, axis, reps in cases:
+        dim = S if axis == 0 else L
+        hi = dim - (reps > 1)
+        tab = torch.from_numpy(rng.random((S, L), dtype=np.float32)).to(dev)
+        idx_np = (rng.integers(0, hi, (S, 1)).repeat(L, 1)
+                  if pattern == "rowbcast" else rng.integers(0, hi, (S, L)))
+        idx = torch.from_numpy(idx_np.astype(np.int32)).to(dev)
+        r = gather_case(D, tab, idx, f"{name} {pattern}", axis, reps,
+                        floor["device_ms"], later)
+        r.update(name=name, pattern=pattern)
+        if name == "probe":
+            patterns.append(r)
+        else:
+            rows.setdefault(name, {})[axis] = r
+    report["dyngather_phase"] = dict(launches=launches, probe=res, rows=rows,
+                                     patterns=patterns, launch_floor=floor)
     return launches, rows
+
+
+def gather_case(D, tab, idx, name, axis, reps, floor_ms, later):
+    """One row of the gather phase on ``tab`` and ``idx``: bit-equality,
+    the path, (a)-(d), the bound and its share of (b); (c) is appended to
+    ``later``."""
+    import torch
+
+    S, L = tab.shape
+    wrapper = D.gather if reps == 1 else D.gather_sum
+
+    def wrapped():
+        if reps == 1:
+            return D.gather(tab, idx, axis)
+        return D.gather_sum(tab, idx, axis, reps)
+
+    got = wrapped()
+    ref = D.gather_sum_ref(tab, idx, axis, reps)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, ref))
+    out = torch.empty_like(tab)
+    idx_long = idx.long()
+
+    def kernel():
+        return D.launch(wrapper, tab, idx, out, axis, reps)
+
+    def library():
+        return torch.take_along_dim(tab, idx_long, dim=axis)
+
+    # The path the C entry reports launching (None from a tree whose
+    # launch reports none).
+    path = kernel()
+    torch.cuda.synchronize()
+    rerun_equal = bool(torch.equal(out, got))
+    device_ms, capture = try_graph_ms(kernel)
+    lib_device_ms, lib_capture = try_graph_ms(library)
+    r = dict(
+        axis=axis, reps=reps, path=path, bit_equal=equal,
+        rerun_bit_equal=rerun_equal,
+        max_abs_err=float((got - ref).abs().max()),
+        host_ms=cuda_ms(kernel, 500, 20),  # (a)
+        device_ms=device_ms, capture=capture,  # (b)
+        graph_replayed_launches=(None if device_ms is None else
+                                 GRAPH_LAUNCHES * (GRAPH_REPLAYS + 1)),
+        profiled_ms=None, profiled_kernels=0,  # (c), filled in later
+        # The wrapper, with its index check's read-back.
+        wrapper_ms=cuda_ms(wrapped, 100, 5),
+        plain_ms=cuda_ms(lambda: D.gather_sum_ref(tab, idx, axis, reps),
+                         20, 2),
+        library_host_ms=cuda_ms(library, 500, 20),  # (d)
+        library_device_ms=lib_device_ms, library_capture=lib_capture,
+        launch_floor_ms=floor_ms, **dyngather_bound(S, L, reps))
+    r["bound_share"] = None if device_ms is None else r["bound_ms"] / device_ms
+    label = f"{name} axis {axis} reps {reps} [{S}, {L}]"
+    share = ("" if device_ms is None else
+             f" = {100 * r['bound_share']:.1f} % of (b)")
+    print(f"[dyngather] {label}: path {path or 'not reported'}, bit-equal "
+          f"{equal}, rerun bit-identical {rerun_equal} | (a) host-launched "
+          f"{r['host_ms']:.5f} ms, (b) device {fmt_ms(device_ms)}"
+          f"{'' if capture is None else ' (' + capture + ')'}, wrapper "
+          f"{r['wrapper_ms']:.5f} ms, plain {r['plain_ms']:.4f} ms | (d) "
+          f"take_along_dim{' (one gather)' if reps > 1 else ''} (a) "
+          f"{r['library_host_ms']:.5f} ms, (b) {fmt_ms(lib_device_ms)} | (e) "
+          f"floor {floor_ms:.5f} ms | bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']}){share}", flush=True)
+    if not (equal and rerun_equal):
+        raise AssertionError(f"dyngather {label}: kernel differs from the "
+                             "plain version or from its own rerun")
+    if path is not None and path != "vector":
+        raise AssertionError(f"dyngather {label}: the {path} path ran, not "
+                             "the vector one")
+
+    def profiled():
+        r["profiled_ms"], r["profiled_kernels"] = profiled_ms(kernel,
+                                                              "dyngather")
+        print(f"[dyngather] {label}: (c) profiled kernel "
+              f"{fmt_ms(r['profiled_ms'])} a launch over "
+              f"{r['profiled_kernels']} kernels (device "
+              f"{fmt_ms(r['device_ms'])}, host-launched {r['host_ms']:.5f} "
+              "ms)", flush=True)
+
+    later.append(profiled)
+    return r
+
+
+def gather_row(dg, launches, name, line):
+    """The kernels line's row of one gather wrapper: axis 0's numbers under
+    the contract's keys, axis 1's beside them. ``ms`` and ``library_ms``
+    (``take_along_dim``, for reps 1 only: with reps > 1 no one call
+    computes the function) are host-launched (a), as in every earlier row;
+    the device times (b) stand apart under ``device_ms`` and
+    ``library_device_ms`` (None where the graph refused the launch), the
+    profiler's (c) under ``profiled_ms``."""
+    a0, a1 = dg[name][0], dg[name][1]
+    once = a0["reps"] == 1
+
+    def lib(r, key):
+        return r[key] if once else None
+
+    return dict(
+        name=name, route="cuda", source="pose_splatter_torch/csrc/dyngather.cu",
+        replaces=f"scripts/dbg_dyngather_micro.py:{line}",
+        launches=launches["gather" if once else "gather_sum"],
+        max_abs_err=max(a0["max_abs_err"], a1["max_abs_err"]),
+        ms=a0["host_ms"], plain_ms=a0["plain_ms"], bound_ms=a0["bound_ms"],
+        bound_by=a0["bound_by"], library_ms=lib(a0, "library_host_ms"),
+        reps=a0["reps"], ms_axis1=a1["host_ms"],
+        library_ms_axis1=lib(a1, "library_host_ms"),
+        device_ms=a0["device_ms"], device_ms_axis1=a1["device_ms"],
+        profiled_ms=a0["profiled_ms"], profiled_ms_axis1=a1["profiled_ms"],
+        library_device_ms=lib(a0, "library_device_ms"),
+        library_device_ms_axis1=lib(a1, "library_device_ms"),
+        launch_floor_ms=a0["launch_floor_ms"], path=a0["path"],
+        path_axis1=a1["path"], plain_ms_axis1=a1["plain_ms"],
+        wrapper_ms=a0["wrapper_ms"], wrapper_ms_axis1=a1["wrapper_ms"])
 
 
 def bench3d_phase(report, card, later):
@@ -1084,7 +1272,12 @@ def train_phase(report, key, config, k_steps, later):
     return launches, main_kernel
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gather-only", action="store_true",
+                    help="build dyngather.cu and run only the gather phase "
+                         "and its profile")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1103,19 +1296,24 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    names = ("composite_fwd", "composite_bwd", "dyngather")
+    names = (("dyngather",) if args.gather_only else
+             ("composite_fwd", "composite_bwd", "dyngather"))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:  # one nvcc a source, at once
         libs = dict(zip(names, ex.map(_build.build, names)))
     build_s = time.perf_counter() - t0
-    print(f"build: {', '.join(n + '.cu' for n in names)} in {build_s:.1f} s",
-          flush=True)
+    print(f"build: {', '.join(n + '.cu' for n in names)} in {build_s:.1f} s "
+          f"({_build.CSRC})", flush=True)
     for name, lib in libs.items():
         log = Path(str(lib) + ".log")
         for line in log.read_text().splitlines() if log.exists() else []:
             if any(w in line for w in ("entry function", "registers", "spill",
                                        "smem")):
                 print(f"  ptxas {name}: {line.strip()[:120]}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", line)
+            if spills and any(int(g) for g in spills.groups()):
+                raise AssertionError(f"{name}.cu spills registers: {line}")
 
     report = dict(card=card, build_s=build_s, phase_s={})
     res = {}
@@ -1126,25 +1324,38 @@ def main() -> int:
         report["phase_s"][phase] = time.perf_counter() - t
         print(f"phase {phase}: {report['phase_s'][phase]:.1f} s", flush=True)
 
-    run("dyngather", dyngather_phase)
-    run("kernels", kernel_phase)
     # torch.profiler runs only after every timed phase (``later``), so that
     # it cannot perturb what is timed.
     later = []
-    run("eval2d", eval_phase, "slice_phase", north_star_config(), "ellipse",
-        later)
-    cfg2 = north_star_config(project_directory=str(ROOT / "build" / "train"))
-    assert (cfg2.lr, cfg2.img_lambda, cfg2.ssim_lambda) == (1e-4, 0.5, 0.1)
-    run("train2d", train_phase, "train_phase", cfg2, K_STEPS, later)
-    run("eval3d", eval_phase, "eval3d_phase", config_3d(), "conic", later)
-    cfg3 = config_3d(project_directory=str(ROOT / "build" / "train3d"))
-    assert (cfg3.lr, cfg3.img_lambda, cfg3.ssim_lambda) == (1e-4, 0.5, 0.0)
-    run("train3d", train_phase, "train3d_phase", cfg3, K_STEPS_3D, later)
-    run("bench3d", bench3d_phase, card, later)
+    run("dyngather", dyngather_phase, later)
+    if not args.gather_only:
+        run("kernels", kernel_phase)
+        run("eval2d", eval_phase, "slice_phase", north_star_config(),
+            "ellipse", later)
+        cfg2 = north_star_config(
+            project_directory=str(ROOT / "build" / "train"))
+        assert (cfg2.lr, cfg2.img_lambda, cfg2.ssim_lambda) == (1e-4, 0.5, 0.1)
+        run("train2d", train_phase, "train_phase", cfg2, K_STEPS, later)
+        run("eval3d", eval_phase, "eval3d_phase", config_3d(), "conic", later)
+        cfg3 = config_3d(project_directory=str(ROOT / "build" / "train3d"))
+        assert (cfg3.lr, cfg3.img_lambda, cfg3.ssim_lambda) == (1e-4, 0.5, 0.0)
+        run("train3d", train_phase, "train3d_phase", cfg3, K_STEPS_3D, later)
+        run("bench3d", bench3d_phase, card, later)
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    dg_launches, dg = res["dyngather"]
+    gather_rows = [gather_row(dg, dg_launches, "dyngather_sum", 37),
+                   gather_row(dg, dg_launches, "dyngather_once", 75)]
+    if args.gather_only:
+        report["result"] = kernels = {"kernels": gather_rows}
+        (out / "chip_smoke_gather.json").write_text(json.dumps(report, indent=1))
+        print(json.dumps(kernels))
+        print(card)
+        return 0
 
-    (dg_launches, dg), kp = res["dyngather"], res["kernels"]
+    kp = res["kernels"]
     (eval_launches, sk), (train_launches, tk) = res["eval2d"], res["train2d"]
     (e3_launches, e3), (t3_launches, t3) = res["eval3d"], res["train3d"]
     b3 = res["bench3d"]
@@ -1154,19 +1365,6 @@ def main() -> int:
         t3["fwd_max_abs_err"]]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
         tk["max_abs_err"], t3["max_abs_err"]]
-
-    def gather_row(name, line):
-        a0, a1 = dg[name][0], dg[name][1]
-        return dict(
-            name=name, route="cuda",
-            source="pose_splatter_torch/csrc/dyngather.cu",
-            replaces=f"scripts/dbg_dyngather_micro.py:{line}",
-            launches=dg_launches["gather_sum" if a0["reps"] > 1 else "gather"],
-            max_abs_err=max(a0["max_abs_err"], a1["max_abs_err"]),
-            ms=a0["ms"], plain_ms=a0["plain_ms"], bound_ms=a0["bound_ms"],
-            bound_by=a0["bound_by"], library_ms=a0["library_ms"],
-            reps=a0["reps"], ms_axis1=a1["ms"], plain_ms_axis1=a1["plain_ms"],
-            library_ms_axis1=a1["library_ms"], wrapper_ms=a0["wrapper_ms"])
 
     kernels = {"kernels": [
         dict(name="composite_fwd", route="cuda",
@@ -1198,11 +1396,8 @@ def main() -> int:
              plain_ms_3d_train=t3["plain_ms"], bound_ms_3d_train=t3["bound_ms"],
              bound_by_3d_train=t3["bound_by"],
              cuda_launches_a_call=tk["split"]["launches_per_call"]),
-        gather_row("dyngather_sum", 37),
-        gather_row("dyngather_once", 75)]}
+        *gather_rows]}
     report["result"] = kernels
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(kernels))
     print(card)

@@ -17,7 +17,11 @@ fallback between them. An index outside the table raises, as
 ``torch.take_along_dim`` does; nothing is clamped. The range check reads
 the indices' extremes back to the host, one synchronisation a call. Every
 launch goes through :func:`launch`, which counts it in the wrapper's
-``launches``.
+``launches`` and returns the path the C entry took: "vector" (16-byte
+accesses, one quad of 4 elements a thread) where L % 4 == 0 and the three
+tensors are 16-byte aligned, else "scalar" (one element a thread); "none"
+for an empty table, which launches nothing. Both paths add in the same
+order, so the path never changes a result.
 """
 
 from __future__ import annotations
@@ -67,27 +71,50 @@ def _check(tab, idx, axis: int, reps: int):
         raise ValueError(f"axis 1 takes rows of at most {MAX_ROW} floats")
 
 
-def launch(wrapper, tab: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
-           axis: int, reps: int) -> None:
-    """Launch ``csrc/dyngather.cu`` into ``out`` and add one to
-    ``wrapper.launches``: the one way into the kernel, so every launch is
-    counted. It checks nothing: a wrapper checks its CUDA tensors on every
-    call, and a timing loop calls a wrapper once on its tensors first."""
+_ENTRY = None  # the C entry, bound with its argument types at first launch
+_PATHS = {-1: "scalar", -2: "vector"}  # the C entry's codes of a launch
+
+
+def _bind():
+    """Build (if needed) and load ``csrc/dyngather.cu`` and bind its C
+    entry, once."""
+    global _ENTRY
     from pose_splatter_torch.ops import _build
 
     fn = _build.load("dyngather").dyngather
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p] + [ctypes.c_int] * 4 + [p]
-        fn.restype = ctypes.c_int
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p] + [ctypes.c_int] * 4 + [p]
+    fn.restype = ctypes.c_int
+    _ENTRY = fn
+    return fn
+
+
+def launch(wrapper, tab: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+           axis: int, reps: int) -> str:
+    """Launch ``csrc/dyngather.cu`` into ``out`` on the current stream, add
+    one to ``wrapper.launches`` and return the path the kernel took
+    ("vector" or "scalar"): the one way into the kernel, so every launch is
+    counted. An empty table launches nothing, counts nothing and returns
+    "none". It checks nothing else: a wrapper checks its CUDA tensors on
+    every call, and a timing loop calls a wrapper once on its tensors first.
+    It enters the tensors' device only when that is not the current one."""
     S, L = tab.shape
-    with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream(tab.device).cuda_stream
-        err = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), S, L, axis,
-                 reps, stream)
-    if err != 0:
-        raise RuntimeError(f"dyngather launch failed: CUDA error {err}")
+    if S * L == 0:
+        return "none"
+    fn = _ENTRY or _bind()
+    index = tab.device.index
+    args = (tab.data_ptr(), idx.data_ptr(), out.data_ptr(), S, L, axis, reps,
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args)
+    path = _PATHS.get(rc)
+    if path is None:
+        raise RuntimeError(f"dyngather launch failed: CUDA error {rc}")
     wrapper.launches += 1
+    return path
 
 
 def _run(tab, idx, axis: int, reps: int, wrapper) -> torch.Tensor:
@@ -95,8 +122,7 @@ def _run(tab, idx, axis: int, reps: int, wrapper) -> torch.Tensor:
     if tab.device.type == "cpu":
         return gather_sum_ref(tab, idx, axis, reps)
     out = torch.empty_like(tab)
-    if out.numel():  # an empty table launches nothing and counts nothing
-        launch(wrapper, tab, idx, out, axis, reps)
+    launch(wrapper, tab, idx, out, axis, reps)
     return out
 
 

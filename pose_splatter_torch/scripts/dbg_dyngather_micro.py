@@ -9,7 +9,10 @@ image-table shape [2304, 128] (576x512 flattened) for three index
 patterns: random rows (axis 0), row broadcast (every lane of output row i
 reads source row s_i, axis 0) and random lanes (axis 1). Times come from
 CUDA events over many launches of the kernel after a warm-up; each line
-names the card. Runs on the GPU and raises where there is none. Indices
+names the card. They are host-launched rates: at this size a launch's
+device work takes less time than the host's Python takes to issue it, so
+the lines time the launch path (``chip_smoke.py --gather-only`` prints
+the device time beside them). Runs on the GPU and raises where there is none. Indices
 come from ``np.random.default_rng(seed)``.
 
 The rates are per gather the kernel does, not per term of the sum. Whatever

@@ -5,7 +5,10 @@ over 200 chunks spread over as many blocks, bit-identical reruns, the
 forward's ``tbounds`` store, instance arrays of projected 3D Gaussians, the
 3D rasterizer's gradients against the CPU's, the launch counts and the
 wrappers' checks. The dynamic gather: both axes at the probe's shape,
-bit-equal, odd shapes and the index check.
+bit-equal, odd shapes and the index check; which path the C entry takes
+(vector at the probe's shape and for ragged row blocks, scalar for rows
+of no whole quads and for misaligned views), the widest axis-1 row, and
+bit-identical reruns.
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
 (the kernel has no CPU mode). On a machine with an NVIDIA GPU and ``nvcc``:
@@ -445,6 +448,18 @@ def test_dyngather_wrapper_rejects_what_the_kernel_does_not_take(dev):
     assert tdg.gather_sum.launches == before
 
 
+@pytest.mark.parametrize("shape", [(0, 128), (2304, 0)])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_dyngather_empty_table_launches_nothing(dev, shape, axis):
+    tab = torch.zeros(shape, device=dev)
+    idx = torch.zeros(shape, dtype=torch.int32, device=dev)
+    before = tdg.gather_sum.launches
+    assert tdg.launch(tdg.gather_sum, tab, idx, torch.empty_like(tab), axis,
+                      2) == "none"
+    assert tdg.gather_sum(tab, idx, axis, 2).shape == shape
+    assert tdg.gather_sum.launches == before
+
+
 def test_dyngather_probe_counts_every_launch(dev):
     """The probe's timed launches go through the counted ``launch``: its
     count is one checked call, the warm-up and the timed loop."""
@@ -455,3 +470,86 @@ def test_dyngather_probe_counts_every_launch(dev):
         0, probe.S - 1, (probe.S, probe.L)), np.random.default_rng(1), "card")
     assert tdg.gather_sum.launches - before == 1 + probe.WARMUP + probe.ITERS
     assert line["ms"] > 0
+
+
+def _gather_inputs(dev, shape, axis, reps, seed, tab_offset=0, idx_offset=0):
+    """A random table and indices of ``shape``; a nonzero offset makes that
+    tensor a contiguous view ``offset`` elements into a larger one, so its
+    data pointer is not 16-byte aligned."""
+    gen = torch.Generator().manual_seed(seed)
+    S, L = shape
+    n = S * L
+    tab = torch.randn(n + tab_offset, generator=gen).to(dev)
+    idx = torch.randint(0, shape[axis] - (reps > 1), (n + idx_offset,),
+                        generator=gen, dtype=torch.int32).to(dev)
+    return (tab.view(-1)[tab_offset:tab_offset + n].view(S, L),
+            idx.view(-1)[idx_offset:idx_offset + n].view(S, L))
+
+
+def _gather_path(tab, idx, axis, reps):
+    """The wrapper's result against the plain version, then the kernel
+    launched twice more through ``launch``: both runs bit-identical to the
+    first. Returns the path the C entry reports."""
+    wrapper = tdg.gather if reps == 1 else tdg.gather_sum
+    got = tdg.gather_sum(tab, idx, axis, reps)
+    assert torch.equal(got, tdg.gather_sum_ref(tab, idx, axis, reps))
+    paths = set()
+    for _ in range(2):
+        out = torch.full_like(tab, float("nan"))
+        paths.add(tdg.launch(wrapper, tab, idx, out, axis, reps))
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+    assert len(paths) == 1
+    return paths.pop()
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("reps", [1, 2, 32])
+def test_dyngather_takes_the_vector_path_at_the_probe_shape(dev, axis, reps):
+    tab, idx = _gather_inputs(dev, (2304, 128), axis, reps, seed=reps)
+    assert _gather_path(tab, idx, axis, reps) == "vector"
+
+
+@pytest.mark.parametrize("shape", [(301, 130), (300, 7)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("reps", [1, 2, 32])
+def test_dyngather_rows_of_no_whole_quads_take_the_scalar_path(
+        dev, shape, axis, reps):
+    """L % 4 != 0: a quad would straddle two rows."""
+    tab, idx = _gather_inputs(dev, shape, axis, reps, seed=3)
+    assert _gather_path(tab, idx, axis, reps) == "scalar"
+
+
+@pytest.mark.parametrize("shape", [(2303, 128), (5, 128), (1001, 12),
+                                   (7, 4)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("reps", [1, 2, 32])
+def test_dyngather_ragged_row_blocks_stay_on_the_vector_path(
+        dev, shape, axis, reps):
+    """Row counts that are not a multiple of an axis-1 block's rows (8 at
+    L = 128, 85 at L = 12) or are fewer: the last block copies only the
+    rows that are left."""
+    tab, idx = _gather_inputs(dev, shape, axis, reps, seed=4)
+    assert _gather_path(tab, idx, axis, reps) == "vector"
+
+
+@pytest.mark.parametrize("tab_offset,idx_offset", [(1, 0), (0, 3), (2, 2)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("reps", [1, 32])
+def test_dyngather_misaligned_views_take_the_scalar_path(
+        dev, tab_offset, idx_offset, axis, reps):
+    tab, idx = _gather_inputs(dev, (300, 128), axis, reps, seed=5,
+                              tab_offset=tab_offset, idx_offset=idx_offset)
+    assert tab.is_contiguous() and idx.is_contiguous()
+    assert _gather_path(tab, idx, axis, reps) == "scalar"
+
+
+@pytest.mark.parametrize("S,offset,path", [(3, 0, "vector"), (1, 0, "vector"),
+                                           (3, 1, "scalar")])
+@pytest.mark.parametrize("reps", [1, 2, 32])
+def test_dyngather_axis1_at_the_widest_row(dev, S, offset, path, reps):
+    """L = 12288, the widest row axis 1 takes: 48 KB of shared memory a
+    block on either path, beside the vector path's mbarrier."""
+    tab, idx = _gather_inputs(dev, (S, tdg.MAX_ROW), 1, reps, seed=6,
+                              tab_offset=offset)
+    assert _gather_path(tab, idx, 1, reps) == path

@@ -99,3 +99,14 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     for t, i, axis, reps, err in bad:
         with pytest.raises(err):
             D.gather_sum(t, i, axis, reps)
+
+
+@pytest.mark.parametrize("shape", [(0, 128), (2304, 0)])
+def test_launch_on_an_empty_table_launches_nothing(shape):
+    """``launch`` returns "none" before it builds or calls the kernel, and
+    counts nothing."""
+    tab = torch.zeros(shape)
+    idx = torch.zeros(shape, dtype=torch.int32)
+    before = D.gather.launches
+    assert D.launch(D.gather, tab, idx, torch.empty_like(tab), 0, 1) == "none"
+    assert D.gather.launches == before
