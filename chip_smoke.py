@@ -19,7 +19,7 @@ spill), then:
    back-to-back calls of ``dyngather.launch``, so the host's Python sets
    it), (b) on the device (200 launches captured in one CUDA graph,
    replayed between CUDA events), (c) the kernel's own duration from
-   ``torch.profiler`` (phase 8), and (e) the launch floor, (b) for a
+   ``torch.profiler`` (phase 10), and (e) the launch floor, (b) for a
    one-element ``zero_()``;
 3. kernel phase: the forward compositor (with and without its ``tbounds``
    store) and the backward compositor on synthetic instance arrays at the
@@ -51,17 +51,29 @@ spill), then:
    96x80x64, 6 cameras, holdout views [5, 1], 3 U-Nets of base width 8, up
    to 16000 Gaussians; lr 1e-4, img_lambda 0.5, ssim_lambda 0): projection,
    depth sort and both compositors in conic mode;
-7. bench shape: the 3D rasterizer alone at 576x512 with 16000 Gaussians
+7. multi-step, after each train phase (2D and 3D): the train phase's
+   state through ``make_train_multi_step`` (8 steps a call, one captured
+   train step replayed): a warm-up call, a copy into a twin model, then 8
+   graph-replayed steps against 8 eager ``make_train_step`` steps of the
+   twin, every loss and the final weights compared; the compositor
+   launches as replays x launches a captured step (the wrappers count at
+   the capture); ms a step both ways; the selection's table flag;
+8. bench shape: the 3D rasterizer alone at 576x512 with 16000 Gaussians
    (``bench.py::run_3d``'s seed-0 cluster, f = 900), forward and backward
    through means, quats, scales, opacities and colours, ms and Mpix/s;
    then both compositors alone on the arrays it binned (``split_stats``);
-8. profiled: what ``torch.profiler`` measures, deferred to after every
+9. synth: ``python -m pose_splatter_torch.scripts.synthetic_benchmark`` at
+   ``SYNTH_BENCH.json``'s shape (576x512, grid 128, crop 96x80x64, 6
+   cameras, view-anchored 2D) for 64 steps, 8 a call, with the per-camera
+   evaluation: its report printed and checked;
+10. profiled: what ``torch.profiler`` measures, deferred to after every
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
-   card's busy share of one more train step in each mode and of a
-   bench-shape fwd+bwd (``device_busy``).
+   card's busy share of one more train step in each mode, of a K-step
+   call beside an eager step, and of a bench-shape fwd+bwd
+   (``device_busy``).
 
-``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 8
+``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 10
 for the gather. It prints the gather rows and the card, not the final
 ``ok`` line. The script measures the port of the tree it sits in, so a
 copy of it placed at the root of another commit's checkout measures that
@@ -124,6 +136,10 @@ K_STEPS = 8
 K_EXTRA = 3
 K_STEPS_3D = 6
 EXTRA_PASSES = 3  # passes over the K_EXTRA frames timed whole
+# Multi-step phases: steps a call, and the graph-replayed steps' losses
+# against the eager steps' (relative to the largest loss).
+MS_K = 8
+MS_LOSS_RTOL = 1e-5
 
 
 def card_line() -> str:
@@ -226,10 +242,13 @@ def profile_call(fn, reps: int = 3):
                 kernels=kernels)
 
 
-def device_busy(fn):
+def device_busy(fn, count=("fwd_sum", "bwd_grad")):
     """Wall ms of one call of ``fn`` under ``torch.profiler`` (ending in a
     synchronize) and the ms its device operations took (one stream, so
-    they do not overlap): how far the host holds the card back."""
+    they do not overlap): how far the host holds the card back. Also how
+    many device operations' names hold each of ``count`` (the compositors'
+    last kernels: one a forward, one a backward), which counts kernels that
+    a CUDA graph replays, where the wrappers' counters do not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,7 +261,8 @@ def device_busy(fn):
     evs = device_events(prof)
     busy = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
     return dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
-                kernels=len(evs))
+                kernels=len(evs),
+                counted={c: sum(c in ev.name for ev in evs) for c in count})
 
 
 # CUDA-event ms of the one-block-a-tile compositors that the chunk-parallel
@@ -1269,7 +1289,217 @@ def train_phase(report, key, config, k_steps, later):
         peak_memory_gb=(torch.cuda.max_memory_allocated() - base_bytes) / 1e9)
     print(f"[{key}] train peak device memory "
           f"{report[key]['peak_memory_gb']:.2f} GB", flush=True)
-    return launches, main_kernel
+    return launches, main_kernel, dict(state=state, frames=frames,
+                                       observed=observed, cameras=(Ks, Es))
+
+
+def multistep_phase(report, key, config, trained, later):
+    """``make_train_multi_step`` on the train phase's state: a warm-up call
+    (eager warm-up steps, the capture, replays), a copy of weights, statistics
+    and Adam's state into a twin model, then MS_K graph-replayed steps
+    against MS_K eager ``make_train_step`` steps of the twin on the same
+    frames and views: every loss and the final parameters and statistics.
+    Then ms a step both ways (host clock around synchronised calls, median
+    of 3 calls) and, deferred, the card's busy share of one K-step call
+    beside an eager step's."""
+    import copy
+
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.train.loop import (
+        WARMUP_STEPS,
+        TrainState,
+        adam,
+        make_train_multi_step,
+        make_train_step,
+    )
+    from pose_splatter_torch.train.trainer import build_model
+
+    state, frames = trained["state"], trained["frames"]
+    observed = np.asarray(trained["observed"])
+    model = state.model
+    stack = dict(mask=frames["mask"][:, observed],
+                 img=frames["img"][:, observed], p_3d=frames["p_3d"],
+                 angle=frames["angle"])
+    rng = np.random.default_rng(7)
+
+    def draw():
+        pos = rng.integers(len(observed), size=MS_K)
+        return rng.integers(len(frames["angle"]), size=MS_K), observed[pos], pos
+
+    ms = make_train_multi_step(model, state.optimizer, config.img_lambda,
+                               config.ssim_lambda, stack, steps_per_call=MS_K)
+    t0 = time.perf_counter()
+    state, _ = ms(state, *draw())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    twin = build_model(config, cameras=trained["cameras"], device="cuda",
+                       seed=0)
+    twin.net.load_state_dict(model.net.state_dict())
+    opt = adam(twin.net.parameters(), config.lr)
+    opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    twin_state = TrainState(step=state.step, model=twin, optimizer=opt)
+    step = make_train_step(twin, opt, config.img_lambda, config.ssim_lambda)
+    idx = draw()
+
+    def batch(k):
+        f = idx[0][k]
+        b = {n: v[f:f + 1] for n, v in stack.items()}
+        b.update(view_idx=idx[1][k:k + 1], obs_idx=idx[2][k:k + 1])
+        return b
+
+    # ---- the main path, with the launch counts zeroed around it ----
+    K.composite_instances.launches = 0
+    K.composite_instances_bwd.launches = 0
+    replays = ms.replays
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, _ = ms(state, *idx)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    replays = ms.replays - replays
+    # The replays' tensors, the kernels' scratch included, live in the
+    # graph's pool: the call leaves only its [K, 5] metrics allocated.
+    alloc_delta = torch.cuda.memory_allocated() - allocated
+    through_wrappers = dict(composite_fwd=K.composite_instances.launches,
+                            composite_bwd=K.composite_instances_bwd.launches)
+    # ---------------------------------------------------------------
+    launches = {k: replays * n for k, n in ms.graph_launches.items()}
+    graph_losses = ms.step_metrics["total"].tolist()
+    eager_losses = []
+    for k in range(MS_K):
+        twin_state, m = step(twin_state, batch(k))
+        eager_losses.append(float(m["total"]))
+    diffs, equal = {}, 0
+    for (name, x), y in zip(model.net.state_dict().items(),
+                            twin.net.state_dict().values()):
+        diffs[name] = float((x - y).abs().max())
+        equal += int(torch.equal(x, y))
+    loss_diff = max(abs(a - b) for a, b in zip(graph_losses, eager_losses))
+    param_diff = max(diffs.values())
+    worst = max(diffs, key=diffs.get)
+    bit_equal = loss_diff == 0 and equal == len(diffs)
+    print(f"[{key}] multi-step: warm-up call {first_s:.2f} s ({WARMUP_STEPS} "
+          f"eager steps, the capture, {MS_K - WARMUP_STEPS} replays); a call "
+          f"of {MS_K} replays "
+          f"{call_ms:.1f} ms; compositor launches {launches} ({replays} "
+          f"replays x {ms.graph_launches} a captured step; through the "
+          f"wrappers during the replays {through_wrappers}) | graph losses "
+          + " ".join(f"{x:.6f}" for x in graph_losses) + " | eager losses "
+          + " ".join(f"{x:.6f}" for x in eager_losses)
+          + f" | max |loss diff| {loss_diff:.3g}, {equal} of {len(diffs)} "
+          f"tensors bit-equal, max |param diff| {param_diff:.3g} ({worst})"
+          f"; bit-equal: {bit_equal}; device memory left allocated by the "
+          f"call {alloc_delta} bytes", flush=True)
+    if replays != MS_K or min(launches.values()) < MS_K:
+        raise AssertionError(f"[{key}] {replays} replays, launches {launches}")
+    if any(through_wrappers.values()):
+        raise AssertionError(f"[{key}] a replay went through a wrapper")
+    if alloc_delta > 4096:
+        raise AssertionError(f"[{key}] the replays allocated {alloc_delta} "
+                             "bytes outside the graph's pool")
+    if not np.isfinite(graph_losses).all():
+        raise AssertionError(f"[{key}] non-finite multi-step loss")
+    if not (loss_diff <= MS_LOSS_RTOL * max(map(abs, eager_losses))
+            and param_diff <= 2 * config.lr * MS_K):
+        raise AssertionError(f"[{key}] the graph-replayed steps disagree with "
+                             f"the eager ones ({loss_diff}, {param_diff})")
+    if bool(model.selection_miss) or bool(twin.selection_miss):
+        raise AssertionError(f"[{key}] the selection flag is set")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    graph_runs = [timed(lambda: ms(state, *draw())) / MS_K for _ in range(3)]
+    eager_runs = [timed(lambda: step(twin_state, batch(0))) for _ in range(3)]
+    out = dict(
+        steps_per_call=MS_K, warmup_call_s=first_s, call_ms=call_ms,
+        launches=launches, graph_launches_per_step=ms.graph_launches,
+        launches_through_wrappers=through_wrappers,
+        allocated_by_call_bytes=alloc_delta, graph_losses=graph_losses,
+        eager_losses=eager_losses, max_loss_diff=loss_diff,
+        max_param_diff=param_diff, worst_param=worst,
+        tensors_bit_equal=equal, tensors=len(diffs), bit_equal=bit_equal,
+        graph_ms_per_step=graph_runs, eager_ms_per_step=eager_runs,
+        graph_ms_median=float(np.median(graph_runs)),
+        eager_ms_median=float(np.median(eager_runs)),
+        selection_flag=False, busy={})
+    print(f"[{key}] ms a step: K-step call {out['graph_ms_median']:.2f} "
+          f"(calls of {MS_K}: "
+          + ", ".join(f"{x:.2f}" for x in graph_runs)
+          + f"), eager step {out['eager_ms_median']:.2f} ("
+          + ", ".join(f"{x:.2f}" for x in eager_runs) + ")", flush=True)
+
+    def busy():
+        g = device_busy(lambda: ms(state, *draw()))
+        e = device_busy(lambda: step(twin_state, batch(0)))
+        out["busy"] = dict(graph_call=g, eager_step=e)
+        print(f"[{key}] under torch.profiler: a {MS_K}-step call busy "
+              f"{g['busy_ms']:.2f} of {g['wall_ms']:.2f} ms "
+              f"({100 * g['busy_share']:.1f} %, {g['counted']}), an eager "
+              f"step busy {e['busy_ms']:.2f} of {e['wall_ms']:.2f} ms "
+              f"({100 * e['busy_share']:.1f} %, {e['counted']})", flush=True)
+        if min(g["counted"].values()) < MS_K:
+            raise AssertionError(f"[{key}] the profiler saw {g['counted']} "
+                                 f"compositor kernels in {MS_K} replays")
+
+    later.append(busy)
+    report[key] = out
+    return out
+
+
+# The synthetic quality benchmark at SYNTH_BENCH.json's shape (its lr and
+# crop offsets are not recorded there: the script's default lr and the crop
+# of configs/templates/tpu_2d.json).
+SYNTH_ARGS = ["--width", "576", "--height", "512", "--grid", "128",
+              "--crop", "0,96,16,96,25,89", "--cameras", "6", "--mode", "2d",
+              "--anchored", "--radii", "0.065,0.032,0.028", "--min-n", "1024",
+              "--max-n", "16000", "--per-camera"]
+SYNTH_STEPS = 64
+
+
+def synth_phase(report):
+    """``python -m pose_splatter_torch.scripts.synthetic_benchmark`` at
+    SYNTH_BENCH.json's shape for SYNTH_STEPS steps, 8 a call: its report,
+    checked for the JAX script's keys and finite metrics."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.scripts import synthetic_benchmark as sb
+
+    K.composite_instances.launches = 0
+    K.composite_instances_bwd.launches = 0
+    out = sb.main(SYNTH_ARGS + ["--steps", str(SYNTH_STEPS),
+                                "--steps-per-call", "8"])
+    # The warm-up steps and the capture pass through the wrappers, the
+    # replays do not; the evaluation's forwards do.
+    launches = dict(composite_fwd=K.composite_instances.launches,
+                    composite_bwd=K.composite_instances_bwd.launches)
+    print(f"[synth] report: {json.dumps(out)}", flush=True)
+    print(f"[synth] compositor launches through the wrappers {launches}",
+          flush=True)
+    keys = {"config", "steps", "train_time_s", "steps_per_s",
+            "holdout_psnr_db", "holdout_ssim", "holdout_iou", "backend",
+            "per_camera", "observed_psnr_db", "observed_ssim", "holdout_view",
+            "hbm_peak_bytes", "hbm_limit_bytes"}
+    if set(out) != keys:
+        raise AssertionError(f"synthetic report keys {sorted(out)}")
+    if out["backend"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"synthetic backend {out['backend']}")
+    nums = [out["holdout_psnr_db"], out["holdout_ssim"], out["holdout_iou"],
+            out["observed_psnr_db"]] + [
+        x for row in out["per_camera"].values() for x in row.values()]
+    if not np.isfinite(nums).all() or len(out["per_camera"]) != 6:
+        raise AssertionError("non-finite or missing synthetic metrics")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the synthetic run launched {launches}")
+    report["synth_phase"] = dict(out, launches_through_wrappers=launches)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1336,11 +1566,16 @@ def main(argv=None) -> int:
             project_directory=str(ROOT / "build" / "train"))
         assert (cfg2.lr, cfg2.img_lambda, cfg2.ssim_lambda) == (1e-4, 0.5, 0.1)
         run("train2d", train_phase, "train_phase", cfg2, K_STEPS, later)
+        run("multistep2d", multistep_phase, "multistep2d_phase", cfg2,
+            res["train2d"][2], later)
         run("eval3d", eval_phase, "eval3d_phase", config_3d(), "conic", later)
         cfg3 = config_3d(project_directory=str(ROOT / "build" / "train3d"))
         assert (cfg3.lr, cfg3.img_lambda, cfg3.ssim_lambda) == (1e-4, 0.5, 0.0)
         run("train3d", train_phase, "train3d_phase", cfg3, K_STEPS_3D, later)
+        run("multistep3d", multistep_phase, "multistep3d_phase", cfg3,
+            res["train3d"][2], later)
         run("bench3d", bench3d_phase, card, later)
+        run("synth", synth_phase)
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -1356,8 +1591,9 @@ def main(argv=None) -> int:
         return 0
 
     kp = res["kernels"]
-    (eval_launches, sk), (train_launches, tk) = res["eval2d"], res["train2d"]
-    (e3_launches, e3), (t3_launches, t3) = res["eval3d"], res["train3d"]
+    (eval_launches, sk), (train_launches, tk, _) = res["eval2d"], res["train2d"]
+    (e3_launches, e3), (t3_launches, t3, _) = res["eval3d"], res["train3d"]
+    m2, m3 = res["multistep2d"], res["multistep3d"]
     b3 = res["bench3d"]
     fwd_errs = [kp[m]["max_abs_err"] for m in kp] + [
         kp[m]["tbounds_max_abs_err"] for m in kp] + [
@@ -1375,6 +1611,8 @@ def main(argv=None) -> int:
              launches_3d_eval=e3_launches,
              launches_3d_train=t3_launches["composite_fwd"],
              launches_bench3d=b3["launches"]["composite_fwd"],
+             launches_multistep_2d=m2["launches"]["composite_fwd"],
+             launches_multistep_3d=m3["launches"]["composite_fwd"],
              max_abs_err=max(fwd_errs),
              ms=sk["ms"], plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
              bound_by=sk["bound_by"], library_ms=None,
@@ -1390,6 +1628,8 @@ def main(argv=None) -> int:
              launches=train_launches["composite_bwd"],
              launches_3d_train=t3_launches["composite_bwd"],
              launches_bench3d=b3["launches"]["composite_bwd"],
+             launches_multistep_2d=m2["launches"]["composite_bwd"],
+             launches_multistep_3d=m3["launches"]["composite_bwd"],
              max_abs_err=max(bwd_errs), ms=tk["ms"], plain_ms=tk["plain_ms"],
              bound_ms=tk["bound_ms"], bound_by=tk["bound_by"],
              library_ms=None, ms_3d_train=t3["ms"],

@@ -38,6 +38,116 @@ class GaussianSelection(NamedTuple):
     valid: torch.Tensor  # [max_n] bool
     probs: torch.Tensor  # [max_n] selection probabilities at the final mt
     mask_threshold: torch.Tensor  # [] final threshold
+    table_miss: torch.Tensor  # [] bool: the device route left its table
+
+
+# Threshold iterates tabled each way from mask_threshold (the device route
+# of select_gaussians), and the down steps tabled after an up run.
+TABLE_STEPS = 1 << 14
+AFTER_UP_STEPS = 4
+
+_TABLES: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def _f32_walk(start: np.ndarray, step: np.float32, n: int) -> np.ndarray:
+    """[..., n + 1]: start, then n float32 additions of ``step``, each
+    rounded as the JAX loops round ``m + delta`` (``np.add.accumulate``
+    adds in order; a float32 dtype rounds every partial sum)."""
+    steps = np.broadcast_to(step, start.shape + (n,))
+    return np.add.accumulate(np.concatenate([start[..., None], steps], -1),
+                             axis=-1, dtype=np.float32)
+
+
+def threshold_table(mask_threshold: float, mask_threshold_delta: float,
+                    prob_threshold: float, device) -> Tuple[torch.Tensor, ...]:
+    """The float32 iterates of both threshold loops, on ``device``, built
+    once per (threshold, delta, pt, device).
+
+    up_t [S+1]: ``f32(u_k + lp)`` for the up loop's u_0 = mt,
+    u_{k+1} = f32(u_k + delta); down_u, down_nt [S+1]: the down loop's
+    iterates from mt and their thresholds negated (so ascending);
+    after_u, after_t [S+1, A+1]: row k the down loop's iterates from u_k
+    and their thresholds. In float32 f32(u_k - delta) need not be
+    u_{k-1}, so a down run after k up steps follows its own row, as the
+    JAX loops do. Every sequence is monotone (rounding is),
+    so a loop's stopping point is a count of table entries.
+    """
+    key = (float(mask_threshold), float(mask_threshold_delta),
+           float(prob_threshold), torch.device(device))
+    tables = _TABLES.get(key)
+    if tables is None:
+        f32 = np.float32
+        lp = f32(math.log(prob_threshold / (1.0 - prob_threshold)))
+        delta = f32(mask_threshold_delta)
+        mt = np.asarray(mask_threshold, f32)
+        up_u = _f32_walk(mt, delta, TABLE_STEPS)
+        down_u = _f32_walk(mt, -delta, TABLE_STEPS)
+        after_u = _f32_walk(up_u, -delta, AFTER_UP_STEPS)
+        tables = tuple(
+            torch.as_tensor(x, device=device) for x in (
+                up_u + lp, down_u, -(down_u + lp), after_u, after_u + lp))
+        _TABLES[key] = tables
+    return tables
+
+
+def _decisive_values(bits, vals_sorted, min_n: int, max_n: int):
+    """v_lo, v_hi [1]: the values the loops' counts turn on, on the device
+    (``bits``: vol0's float32 bit patterns).
+
+    ``count(t) = #{v > t}`` skips NaNs, and the total order puts positive
+    NaNs first, so the min_n-th and (max_n+1)-th largest counted values sit
+    that many places down. v_lo is NaN where no such value exists (the JAX
+    down loop would not end); v_hi is -inf where none exists (the up loop
+    does not run)."""
+    N = vals_sorted.shape[0]
+    n_top = (bits > 0x7F800000).sum()
+    pos = n_top + torch.arange(2, device=bits.device) * (max_n - min_n + 1) \
+        + (min_n - 1)
+    v = vals_sorted[pos.clamp(max=N - 1)]
+    inside = pos < N
+    v_lo = torch.where(inside[:1], v[:1], math.nan)
+    v_hi = torch.where(inside[1:] & ~torch.isnan(v[1:]), v[1:], -math.inf)
+    return v_lo, v_hi
+
+
+def _loops_on_device(v_lo, v_hi, tables):
+    """The threshold loops' outcome from the table, on the device with no
+    read-back: (final mt [], its threshold f32(mt + lp) [], the table-miss
+    flag [])."""
+    up_t, down_u, down_nt, after_u, after_t = tables
+    S, A = down_u.shape[0] - 1, after_u.shape[1] - 1
+    # Up: u_k steps while v_hi > t_k; it stops at the count of t_k < v_hi.
+    k = torch.searchsorted(up_t, v_hi)
+    kc = k.clamp(max=S)
+    # Down: d_j steps while not v_lo > t(d_j); it stops at the count of
+    # t(d_j) >= v_lo, i.e. of -t(d_j) <= -v_lo.
+    j0 = torch.searchsorted(down_nt, -v_lo, right=True)
+    j1 = (after_t[kc] >= v_lo[:, None]).sum(-1)
+    j0c, j1c = j0.clamp(max=S), j1.clamp(max=A)
+    first = k == 0
+    mt = torch.where(first, down_u[j0c], after_u[kc, j1c])
+    thr = torch.where(first, -down_nt[j0c], after_t[kc, j1c])
+    miss = ((k > S) | (first & (j0 > S)) | (~first & (j1 > A))
+            | torch.isnan(v_lo))
+    return mt[0], thr[0], miss[0]
+
+
+def _loops_on_host(v_lo, v_hi, lp, mt, delta):
+    """The JAX loops, run on the host over the two decisive values."""
+    if np.isnan(v_lo):
+        raise ValueError("fewer than min_n counted (non-NaN) occupancy values")
+    steps = 0
+    while v_hi > np.float32(mt + lp):
+        mt = np.float32(mt + delta)
+        steps += 1
+        if steps > 10_000_000:
+            raise RuntimeError("mask threshold loop did not terminate")
+    while not v_lo > np.float32(mt + lp):
+        mt = np.float32(mt - delta)
+        steps += 1
+        if steps > 10_000_000:
+            raise RuntimeError("mask threshold loop did not terminate")
+    return mt
 
 
 def select_gaussians(
@@ -47,52 +157,60 @@ def select_gaussians(
     prob_threshold: float,
     mask_threshold: float,
     mask_threshold_delta: float,
+    route: str = "device",
 ) -> GaussianSelection:
     """Adaptive threshold + top-``max_n`` selection (``pose_splatter.py:56-81``).
 
     The threshold ``mt`` steps up by ``delta`` while more than ``max_n``
     voxels exceed ``mt + logit(pt)``, then down while fewer than ``min_n``
     do, in float32 as the JAX loops do. Both counts are read off the sorted
-    values (count(t) > max_n iff the (max_n+1)-th largest value exceeds t),
-    so the loops run on the host over two scalars.
+    values (count(t) > max_n iff the (max_n+1)-th largest counted value
+    exceeds t; :func:`_decisive_values`).
+
+    ``route`` "device" (the model's) finds where the loops stop in
+    :func:`threshold_table` with no read-back, so a CUDA graph can capture
+    it. A value past the table (or a missing v_lo) sets ``table_miss``
+    instead of being clamped; the model raises on it
+    (``PoseSplatter.check_selection``). "host" runs the loops themselves on
+    the host over the two values (one read-back): the reference the tests
+    hold the table against. Both give the JAX loops' threshold bit for
+    bit.
 
     Ties: ``jax.lax.top_k`` puts the lower index first among equal values,
     and 2D compositing follows the selection order, so the order is taken
-    from a stable descending sort (``torch.topk`` gives no tie order).
+    from a stable descending sort (``torch.topk`` gives no tie order). The
+    sort runs on the float32 total order that ``top_k`` uses, where -0.0
+    sorts below +0.0 and positive NaNs above everything.
     """
     N = vol0.shape[0]
     if not 1 <= min_n <= max_n <= N:
         raise ValueError(f"need 1 <= min_n <= max_n <= N, got {min_n}, "
                          f"{max_n}, {N}")
-    vals_sorted, order = torch.sort(vol0, descending=True, stable=True)
+    bits = vol0.detach().contiguous().view(torch.int32)
+    order = torch.sort(bits ^ ((bits >> 31) & 0x7FFFFFFF), descending=True,
+                       stable=True).indices
+    vals_sorted = vol0.index_select(0, order)
+    v_lo, v_hi = _decisive_values(bits, vals_sorted.detach(), min_n, max_n)
     f32 = np.float32
-    lp = f32(math.log(prob_threshold / (1.0 - prob_threshold)))
-    delta = f32(mask_threshold_delta)
-    probe = [min_n - 1] + ([max_n] if max_n < N else [])
-    host = vals_sorted[probe].detach().cpu().numpy()
-    v_lo = host[0]
-    if not np.isfinite(v_lo):
-        raise ValueError("non-finite occupancy values in selection")
-    mt = f32(mask_threshold)
-    steps = 0
-    if max_n < N:
-        v_hi = host[1]
-        while v_hi > f32(mt + lp):
-            mt = f32(mt + delta)
-            steps += 1
-            if steps > 10_000_000:
-                raise RuntimeError("mask threshold loop did not terminate")
-    while not v_lo > f32(mt + lp):
-        mt = f32(mt - delta)
-        steps += 1
-        if steps > 10_000_000:
-            raise RuntimeError("mask threshold loop did not terminate")
+    if route == "device":
+        tables = threshold_table(mask_threshold, mask_threshold_delta,
+                                 prob_threshold, vol0.device)
+        mt_t, thr, miss = _loops_on_device(v_lo, v_hi, tables)
+    elif route == "host":
+        lo, hi = torch.cat([v_lo, v_hi]).cpu().numpy()
+        lp = f32(math.log(prob_threshold / (1.0 - prob_threshold)))
+        mt = _loops_on_host(lo, hi, lp, f32(mask_threshold),
+                            f32(mask_threshold_delta))
+        mt_t = torch.tensor(mt, dtype=torch.float32, device=vol0.device)
+        thr = torch.tensor(f32(mt + lp), dtype=torch.float32,
+                           device=vol0.device)
+        miss = torch.zeros((), dtype=torch.bool, device=vol0.device)
+    else:
+        raise ValueError(f"unknown selection route {route!r}")
     vals = vals_sorted[:max_n]
-    mt_t = torch.tensor(mt, dtype=torch.float32, device=vol0.device)
-    thr = torch.tensor(f32(mt + lp), dtype=torch.float32, device=vol0.device)
     return GaussianSelection(indices=order[:max_n], valid=vals > thr,
                              probs=torch.sigmoid(vals - mt_t),
-                             mask_threshold=mt_t)
+                             mask_threshold=mt_t, table_miss=miss)
 
 
 def take_rows_unique(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -249,6 +367,10 @@ class PoseSplatter(nn.Module):
         self.register_buffer("viewmats_obs", Es[obs], persistent=False)
         self.register_buffer("background_color", torch.tensor(
             background_color, dtype=torch.float32), persistent=False)
+        # Set when a device-route selection left its threshold table;
+        # read and cleared by check_selection.
+        self.register_buffer("selection_miss", torch.zeros(
+            (), dtype=torch.bool), persistent=False)
         grid = torch.as_tensor(create_3d_grid(ell, grid_size, volume_idx=volume_idx))
         self.register_buffer("grid", grid, persistent=False)
         self.input_size = tuple(int(i2 - i1) for (i1, i2) in volume_idx)
@@ -281,6 +403,19 @@ class PoseSplatter(nn.Module):
     def device(self) -> torch.device:
         return self.grid.device
 
+    def check_selection(self) -> None:
+        """Raise if a selection since the last check left its threshold
+        table (``select_gaussians``' device route); clears the flag. One
+        read of a device value: callers check once a call, after the work
+        they enqueued."""
+        if bool(self.selection_miss):
+            self.selection_miss.zero_()
+            raise RuntimeError(
+                "select_gaussians: an occupancy value lies outside the mask "
+                f"threshold table ({TABLE_STEPS} steps of "
+                f"{self.mask_threshold_delta} from {self.mask_threshold}) "
+                "or fewer than min_n values are counted")
+
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
@@ -300,6 +435,7 @@ class PoseSplatter(nn.Module):
         sel = select_gaussians(
             vol_flat[0], self.min_n, self.max_n, self.prob_threshold,
             self.mask_threshold, self.mask_threshold_delta)
+        self.selection_miss.logical_or_(sel.table_miss)
         feats = take_rows_unique(vol_flat.T, sel.indices)  # [max_n, out_ch]
         net_out = self.net.gaussian_head(feats)
 
@@ -395,12 +531,19 @@ class PoseSplatter(nn.Module):
         returns rgb, alpha, the updated running statistics (a dict by
         buffer name; the buffers are not written) and the overflow, as the
         JAX forward with ``mutable=["batch_stats"]`` does.
+
+        The eval forward checks the selection's table flag before it
+        returns (not while a CUDA graph captures it); in train mode the
+        train step checks it once a step, or a call of K steps.
         """
         if train:
             return self._forward(mask, img, p_3d, angle, view_idx, {})
         with torch.no_grad():
             rgb, alpha, _, overflow = self._forward(mask, img, p_3d, angle,
                                                     view_idx, None)
+        if not (self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            self.check_selection()
         if return_overflow:
             return rgb, alpha, overflow
         return rgb, alpha

@@ -141,7 +141,10 @@ def _build_instances(center, radius, valid, n_ty: int, n_tx: int,
     gtile = torch.where(ok, cam * T + tile, torch.full_like(tile, B * T))
     flat = gtile.reshape(-1)  # slot order (camera, Gaussian, e)
 
-    counts_all = torch.bincount(flat, minlength=B * T + 1)  # + dead slots
+    # Counts by tile, the dead slots' count last; a fixed-size count (a
+    # bincount sizes its output by the maximum, a read-back on the card).
+    counts_all = torch.zeros(B * T + 1, dtype=torch.long, device=dev)
+    counts_all.index_add_(0, flat, torch.ones_like(flat))
     counts = counts_all[:B * T].reshape(B, T)
     nsteps = (counts + G - 1) // G
     astarts = G * torch.cat(

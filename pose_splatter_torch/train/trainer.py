@@ -5,8 +5,9 @@ train step: per-epoch training over shuffled frames, validation every
 ``valid_every`` epochs, checkpoints every ``save_every``, ``load`` to resume.
 
 Not ported yet: the plots (the JAX trainer skips them when their import
-fails; here they are always skipped until viz is ported), ``remat_unets``
-and ``adaptive_camera`` (both raise).
+fails; here they are always skipped until viz is ported), ``remat_unets``,
+``adaptive_camera``, ``carve_visibility_cap`` and the ``"tiled"`` render
+mode (all raise).
 """
 
 from __future__ import annotations
@@ -49,11 +50,27 @@ def build_model(
     ``render_mode`` defaults to the config's ``render_mode`` or
     ``"kernel"``: the hand-written compositor on a CUDA device, its plain
     PyTorch version on the CPU (chosen by where the tensors lie; there is
-    no fallback between the two). ``cameras`` = (intrinsics [C,3,3],
-    extrinsics [C,4,4]) replaces loading ``config.camera_fn``.
+    no fallback between the two). The JAX package's name ``"pallas"`` is
+    taken as ``"kernel"``. ``cameras`` = (intrinsics [C,3,3], extrinsics
+    [C,4,4]) replaces loading ``config.camera_fn``.
+
+    Keys of the JAX configuration that the port does not run yet raise
+    here rather than being dropped: ``carve_visibility_cap`` (ROADMAP.md
+    A.4) and the ``"tiled"`` render mode (A.7).
     """
     if render_mode is None:
         render_mode = config.get("render_mode", "kernel")
+    render_mode = {"pallas": "kernel"}.get(render_mode, render_mode)
+    if render_mode == "tiled":
+        raise NotImplementedError(
+            "render_mode 'tiled' (the XLA tiled compositor) is not ported "
+            "yet (ROADMAP.md A.7); use 'kernel' or 'global'")
+    if render_mode not in ("kernel", "global"):
+        raise ValueError(f"unknown render_mode {render_mode!r}")
+    if config.get("carve_visibility_cap") is not None:
+        raise NotImplementedError(
+            "carve_visibility_cap is not ported yet (ROADMAP.md A.4): the "
+            "port carves on the exact path only")
     if cameras is None:
         intrinsic, extrinsic, _ = get_cam_params(
             config.camera_fn,
@@ -142,7 +159,8 @@ def train_from_config(
     that function's own docstring and the JAX synthetic benchmark intend.
     """
     if config.get("remat_unets", False):
-        raise NotImplementedError("remat_unets is not ported yet")
+        raise NotImplementedError("remat_unets is not ported yet "
+                                  "(ROADMAP.md A.6)")
     if config.adaptive_camera:
         raise NotImplementedError("adaptive_camera is not ported yet")
     model = build_model(config, ablation=ablation, device=device,

@@ -46,6 +46,11 @@ class Recording:
 _active: Optional[Recording] = None
 
 
+def recording() -> bool:
+    """Whether a :func:`record` block is active."""
+    return _active is not None
+
+
 def mark(name: str, value: Any = None):
     """End of stage ``name``; ``value`` is kept while recording."""
     if _active is not None:

@@ -8,7 +8,10 @@ wrappers' checks. The dynamic gather: both axes at the probe's shape,
 bit-equal, odd shapes and the index check; which path the C entry takes
 (vector at the probe's shape and for ragged row blocks, scalar for rows
 of no whole quads and for misaligned views), the widest axis-1 row, and
-bit-identical reruns.
+bit-identical reruns. The train step captured in a CUDA graph
+(``make_train_multi_step``) against the eager step in both modes, its
+selection flag, the selection's device route against the host loops, and
+capturable Adam against the eager update.
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
 (the kernel has no CPU mode). On a machine with an NVIDIA GPU and ``nvcc``:
@@ -553,3 +556,191 @@ def test_dyngather_axis1_at_the_widest_row(dev, S, offset, path, reps):
     tab, idx = _gather_inputs(dev, (S, tdg.MAX_ROW), 1, reps, seed=6,
                               tab_offset=offset)
     assert _gather_path(tab, idx, 1, reps) == path
+
+
+# ----------------------------------------------------------------------------
+# The captured train step (make_train_multi_step) and the selection's device
+# route, on the card.
+# ----------------------------------------------------------------------------
+
+SMALL = {
+    "2d": ((5, 48, 64), 150.0, (0.05, 0.035, 0.03),
+           dict(ell=0.3, grid_size=32, min_n=32, max_n=256,
+                volume_idx=[[8, 24]] * 3, num_unets=2, base_filters=4,
+                gaussian_mode="2d", gaussian_config={"view_anchored": True},
+                holdout_views=[1], volume_fill_color=0.38)),
+    "3d": ((3, 32, 32), 60.0, (0.09, 0.07, 0.06),
+           dict(ell=0.3, grid_size=16, min_n=32, max_n=512,
+                volume_idx=[[0, 16]] * 3, num_unets=2, base_filters=4,
+                gaussian_mode="3d", holdout_views=[1],
+                volume_fill_color=0.38)),
+}
+
+
+def _small_run(dev, mode):
+    """A small model of ``mode`` at the trainer's fresh start, its frames
+    stacked, and the index triples of 8 steps."""
+    from pose_splatter_torch.models.pose_splatter import (
+        PoseSplatter,
+        init_means2d_center,
+    )
+    from pose_splatter_torch.models.unet3d import init_unet_primary_skip
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import (
+        ring_cameras,
+        synthetic_frames,
+    )
+
+    (C, H, W), focal, axes, kw = SMALL[mode]
+    Ks, Es = ring_cameras(C, W, H, focal=focal, radius=0.6)
+
+    def model():
+        m = PoseSplatter(Ks, Es, W, H, render_mode="kernel", device=dev,
+                         seed=0, **kw)
+        init_unet_primary_skip(m.net, in_channels=m.in_channels)
+        if mode == "2d":
+            init_means2d_center(m.net, W, H, anchored=True)
+        return m
+
+    grid = create_3d_grid(kw["ell"], kw["grid_size"], kw["volume_idx"])
+    frames = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0), axes,
+                              n_frames=3, seed=0)
+    obs = [v for v in range(C) if v not in kw["holdout_views"]]
+    stack = dict(mask=frames["mask"][:, obs], img=frames["img"][:, obs],
+                 p_3d=frames["p_3d"], angle=frames["angle"])
+    rng = np.random.default_rng(1)
+    pos = rng.integers(len(obs), size=8)
+    idx = (rng.integers(3, size=8), np.asarray(obs)[pos], pos)
+    return model, stack, idx
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms for one test: its
+    default choices add some convolution gradients in an order that
+    changes from run to run, which moves the result of two eager runs
+    apart by an ulp as well."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.parametrize("mode", ["2d", "3d"])
+def test_captured_step_matches_the_eager_step(dev, deterministic_cudnn, mode):
+    """Two calls of 4 steps (three eager warm-up steps, the capture, then
+    replays) against 8 make_train_step calls on a twin from the same
+    weights, both with capturable Adam: the same kernels on the same
+    inputs, so with deterministic convolutions the losses, parameters and
+    statistics are equal bit for bit. The compositors launch once a
+    replay, counted at the capture."""
+    from pose_splatter_torch.train.loop import (
+        create_train_state,
+        make_train_multi_step,
+        make_train_step,
+    )
+
+    model, stack, idx = _small_run(dev, mode)
+    a, b = model(), model()
+    sa, sb = create_train_state(a, 1e-3), create_train_state(b, 1e-3)
+    ms = make_train_multi_step(a, sa.optimizer, 0.5, 0.1, stack,
+                               steps_per_call=4)
+    step = make_train_step(b, sb.optimizer, 0.5, 0.1)
+    graph_losses, eager_losses = [], []
+    for call in range(2):
+        sa, _ = ms(sa, *(x[4 * call:4 * call + 4] for x in idx))
+        graph_losses += ms.step_metrics["total"].tolist()
+    for k in range(8):
+        f = idx[0][k]
+        batch = {n: v[f:f + 1] for n, v in stack.items()}
+        batch.update(view_idx=idx[1][k:k + 1], obs_idx=idx[2][k:k + 1])
+        sb, m = step(sb, batch)
+        eager_losses.append(float(m["total"]))
+    assert ms.replays == 5 and sa.step == sb.step == 8
+    assert ms.graph_launches == {"composite_fwd": 1, "composite_bwd": 1}
+    assert graph_losses == eager_losses, (graph_losses, eager_losses)
+    for (k, x), y in zip(a.net.state_dict().items(),
+                         b.net.state_dict().values()):
+        assert torch.equal(x, y), (k, float((x - y).abs().max()))
+    assert not bool(a.selection_miss) and not bool(b.selection_miss)
+
+
+def test_captured_step_raises_on_the_selection_flag(dev):
+    """A table miss inside replays is flagged on the device and raised when
+    the call returns, never clamped."""
+    from pose_splatter_torch.train.loop import (
+        create_train_state,
+        make_train_multi_step,
+    )
+
+    model, stack, idx = _small_run(dev, "2d")
+    a = model()
+    sa = create_train_state(a, 1e-3)
+    ms = make_train_multi_step(a, sa.optimizer, 0.5, 0.1, stack,
+                               steps_per_call=4)
+    sa, _ = ms(sa, *(x[:4] for x in idx))
+    a.selection_miss.fill_(True)  # as a replay's selection would set it
+    with pytest.raises(RuntimeError, match="threshold table"):
+        ms(sa, *(x[4:] for x in idx))
+    assert not bool(a.selection_miss)
+
+
+def _selection_cases():
+    rng = np.random.default_rng(3)
+    N = 4096
+    cases = [
+        (rng.choice([0.0, 2.0, 4.0], N), 1024, 2000),  # ties, up
+        (rng.choice([0.0, 2.0, 4.0], N), 2500, 3000),  # ties, down
+        (np.concatenate([np.full(2000, 2.0), rng.normal(-3, 1, N - 2000)]),
+         500, 1000),  # both loops, a tie at the cap
+        (rng.normal(0, 3, N), 100, 300),
+        (rng.normal(-6, 1, N), 2000, 4000),
+        (np.round(rng.normal(0, 2, N) * 20) / 20, 700, 900),
+        (rng.choice([-3.0, 0.0, 2.0], N), 3000, N),  # max_n = N
+    ]
+    return [(v.astype(np.float32), lo, hi) for v, lo, hi in cases]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_device_selection_equals_the_host_loops_on_the_card(dev, case):
+    from pose_splatter_torch.models.pose_splatter import select_gaussians
+
+    vol0, min_n, max_n = _selection_cases()[case]
+    x = torch.from_numpy(vol0).to(dev)
+    d = select_gaussians(x, min_n, max_n, 0.25, 0.25, 0.05, route="device")
+    h = select_gaussians(x, min_n, max_n, 0.25, 0.25, 0.05, route="host")
+    assert not bool(d.table_miss)
+    for f in ("indices", "valid", "probs", "mask_threshold"):
+        assert torch.equal(getattr(d, f), getattr(h, f)), f
+    auto = select_gaussians(x, min_n, max_n, 0.25, 0.25, 0.05)
+    assert torch.equal(auto.mask_threshold, d.mask_threshold)
+
+
+def test_capturable_adam_against_the_eager_update(dev):
+    """torch.optim.Adam with capturable=True (which the port builds on the
+    card) against capturable=False on the same gradients, 5 steps."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p0 = torch.randn(4096, device=dev, generator=gen)
+    grads = [torch.randn(4096, device=dev, generator=gen) for _ in range(5)]
+    out = {}
+    for capturable in (True, False):
+        p = p0.clone().requires_grad_(True)
+        opt = torch.optim.Adam([p], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                               capturable=capturable)
+        for g in grads:
+            p.grad = g.clone()
+            opt.step()
+        out[capturable] = p.detach()
+    diff = (out[True] - out[False]).abs()
+    ulp = torch.nextafter(out[False].abs(), torch.tensor(np.inf, device=dev)) \
+        - out[False].abs()
+    print(f"capturable vs eager Adam: {int((diff > 0).sum())} of "
+          f"{diff.numel()} entries differ, by at most "
+          f"{float((diff / ulp).max()):.3g} ulp")
+    # Not the same bits (H100: 1549 of 4096 entries differ). The capturable
+    # update takes its bias corrections on the card from float32 betas:
+    # 1 - 0.999f**t is 1.3e-5 off 1 - 0.999**t at t = 1, which moves an
+    # update by up to 6.4e-6 of itself (through the square root), where
+    # the eager update rounds float64 corrections once. Bound: 2 ulp of
+    # the parameter plus 2e-5 of the 5 updates' largest sum, 5·lr.
+    assert bool((diff <= 2 * ulp + 2e-5 * 5 * 1e-3).all())
