@@ -19,7 +19,7 @@ spill), then:
    back-to-back calls of ``dyngather.launch``, so the host's Python sets
    it), (b) on the device (200 launches captured in one CUDA graph,
    replayed between CUDA events), (c) the kernel's own duration from
-   ``torch.profiler`` (phase 10), and (e) the launch floor, (b) for a
+   ``torch.profiler`` (phase 11), and (e) the launch floor, (b) for a
    one-element ``zero_()``;
 3. kernel phase: the forward compositor (with and without its ``tbounds``
    store) and the backward compositor on synthetic instance arrays at the
@@ -58,22 +58,34 @@ spill), then:
    twin, every loss and the final weights compared; the compositor
    launches as replays x launches a captured step (the wrappers count at
    the capture); ms a step both ways; the selection's table flag;
-8. bench shape: the 3D rasterizer alone at 576x512 with 16000 Gaussians
-   (``bench.py::run_3d``'s seed-0 cluster, f = 900), forward and backward
-   through means, quats, scales, opacities and colours, ms and Mpix/s;
-   then both compositors alone on the arrays it binned (``split_stats``);
-9. synth: ``python -m pose_splatter_torch.scripts.synthetic_benchmark`` at
+8. bench: ``python -m pose_splatter_torch.scripts.bench``'s lines (the
+   counterpart of ``bench.py``: 3D and 2D at 576x512 with 16000 Gaussians
+   on its seed-0 scenes, the 3D one ``bench.py::run_3d``'s cluster at
+   f = 900) in ``"kernel"`` mode and in ``"tiled"`` mode (the route
+   ``bench.py`` takes off the TPU; fewer calls, and its lines say so):
+   ``value`` by the host clock and ``device_ms`` by replaying one captured
+   fwd+bwd, then the compositor launches of one more fwd+bwd, its stages
+   recorded; in kernel mode both compositors against their plain versions
+   on the arrays that fwd+bwd binned, and in 3D both alone on them
+   (``split_stats``);
+9. tiled: the O(P) ``composite_pixels`` against autograd through its scan
+   at a (64, 128) tile of 4096 Gaussians (forward bit for bit, gradients
+   within 1e-5, both peak memories); the 2D north-star configuration in
+   ``"tiled"`` mode (an eval forward of one frame over 6 views, 3 train
+   steps, overflow, peak memory); ``graft_entry.entry()`` against its
+   ``fn`` on the CPU (1e-4) and its ms a call;
+10. synth: ``python -m pose_splatter_torch.scripts.synthetic_benchmark`` at
    ``SYNTH_BENCH.json``'s shape (576x512, grid 128, crop 96x80x64, 6
    cameras, view-anchored 2D) for 64 steps, 8 a call, with the per-camera
    evaluation: its report printed and checked;
-10. profiled: what ``torch.profiler`` measures, deferred to after every
+11. profiled: what ``torch.profiler`` measures, deferred to after every
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
    card's busy share of one more train step in each mode, of a K-step
    call beside an eager step, and of a bench-shape fwd+bwd
    (``device_busy``).
 
-``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 10
+``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 11
 for the gather. It prints the gather rows and the card, not the final
 ``ok`` line. The script measures the port of the tree it sits in, so a
 copy of it placed at the root of another commit's checkout measures that
@@ -985,105 +997,309 @@ def gather_row(dg, launches, name, line):
         wrapper_ms=a0["wrapper_ms"], wrapper_ms_axis1=a1["wrapper_ms"])
 
 
-def bench3d_phase(report, card, later):
-    """The 3D rasterizer alone at bench.py's shape: 576x512, 16000
-    Gaussians of ``run_3d``'s seed-0 cluster, f = 900, one camera; forward
-    and backward of sum(rgb^2) + sum(alpha^2) through every Gaussian
-    parameter."""
+# The bench counterpart's lines: (mode, render_mode) and its timing. Kernel
+# mode is timed as bench.py times (best of 4 batches of 30 calls); a tiled
+# fwd+bwd takes hundreds of ms on the card, so its lines take fewer calls
+# and say so.
+BENCH_RUNS = (("3d", "kernel"), ("2d", "kernel"), ("3d", "tiled"),
+              ("2d", "tiled"))
+BENCH_TIMING = {"kernel": dict(iters=30, reps=4, replays=20),
+                "tiled": dict(iters=3, reps=2, replays=3)}
+
+
+def bench_kernels(tag, rec, later):
+    """Both compositors against their plain versions on the instance
+    arrays one bench fwd+bwd binned and the ``tbounds`` and pixel gradients
+    its backward got (``rec``): the forward within TOL with ``jstop``
+    equal, the backward within ``bwd_error``'s bound. In 3D also each alone
+    on those arrays, timed with CUDA events, and how it spread over the
+    card (``split_stats``)."""
     import torch
 
-    from pose_splatter_torch.ops import rasterize as R
     from pose_splatter_torch.ops import rasterize_kernels as K
+
+    bargs = rec.values["kernel_bwd"][0]
+    inst, tbounds, astarts, counts, origins, jstop = bargs[:6]
+    tile, G, kmode = bargs[8], bargs[9], bargs[10]
+    fargs = (inst, astarts, counts, origins, tile, G, kmode)
+    fg = K.composite_instances(*fargs, save_tbounds=True)
+    fr = K.composite_instances_ref(*fargs, save_tbounds=True)
+    d = K.composite_instances_bwd(*bargs)
+    d_ref = K.composite_instances_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    fwd_err = max(float((x - y).abs().max()) for x, y in
+                  ((fg[0], fr[0]), (fg[1], fr[1]), (fg[3], fr[3])))
+    rel, tol = bwd_error(d, d_ref, jstop, tile, G)
+    out = dict(mode=kmode, rows=int(inst.shape[0]),
+               overflow=int(rec.values["binning"][0].overflow),
+               fwd_max_abs_err=fwd_err, jstop_equal=bool(torch.equal(fg[2], fr[2])),
+               bwd_max_abs_err=float((d - d_ref).abs().max()), bwd_rel_err=rel,
+               bwd_rel_tol=tol)
+    print(f"[{tag}] on the bench's own arrays ({kmode}, {out['rows']} rows, "
+          f"overflow {out['overflow']}): composite_fwd max|kernel-plain| "
+          f"{fwd_err:.3g} (tol {TOL}), jstop equal {out['jstop_equal']}; "
+          f"composite_bwd max|kernel-plain| {out['bwd_max_abs_err']:.3g}, "
+          f"{rel:.3g} of each column's largest (tol {tol:.3g})", flush=True)
+    if not fwd_err <= TOL or not out["jstop_equal"]:
+        raise AssertionError(f"[{tag}] forward kernel disagrees on the "
+                             f"bench's arrays ({fwd_err}) or jstop does")
+    if not rel <= tol:
+        raise AssertionError(f"[{tag}] backward kernel disagrees on the "
+                             f"bench's arrays ({rel} > {tol})")
+    if later is not None:
+        fwd_ms = cuda_ms(lambda: K.composite_instances(*fargs, save_tbounds=True),
+                         20, 2)
+        bwd_ms = cuda_ms(lambda: K.composite_instances_bwd(*bargs), 20, 2)
+        out["split"] = dict(
+            fwd=split_stats(tag, "composite_fwd", inst.shape[0], counts, jstop,
+                            tile, G, fwd_ms,
+                            kernel_bound(astarts, counts, jstop, tile, G)["bound_ms"],
+                            lambda: K.composite_instances(*fargs, save_tbounds=True),
+                            later),
+            bwd=split_stats(tag, "composite_bwd", inst.shape[0], counts, jstop,
+                            tile, G, bwd_ms,
+                            bwd_bound(inst, astarts, counts, jstop, tile, G)["bound_ms"],
+                            lambda: K.composite_instances_bwd(*bargs), later))
+    return out
+
+
+def bench_phase(report, card, later):
+    """``pose_splatter_torch.scripts.bench``'s 3D and 2D lines at 576x512
+    with 16000 Gaussians, in ``"kernel"`` mode (the hand-written
+    compositors) and in ``"tiled"`` mode (the route ``bench.py`` takes off
+    the TPU): ``bench.measure``'s ``value`` (host clock) and ``device_ms``
+    (one fwd+bwd captured as a CUDA graph, replayed), then the launches of
+    one more fwd+bwd with its stages recorded. In kernel mode both
+    compositors are then held against their plain versions on the arrays
+    that fwd+bwd recorded (``bench_kernels``), and the card's busy share of
+    a 3D fwd+bwd is taken after every timed phase."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.scripts import bench
     from pose_splatter_torch.utils import stages
 
-    rng = np.random.default_rng(0)
-    means = np.concatenate([rng.normal(0, 0.06, (N_GAUSS, 2)),
-                            rng.normal(2.0, 0.06, (N_GAUSS, 1))], axis=1)
-    quats = rng.normal(size=(N_GAUSS, 4))
-    scales = np.exp(rng.normal(-5.0, 0.3, (N_GAUSS, 3)))
-    opac = rng.uniform(0.3, 0.95, N_GAUSS)
-    colors = rng.uniform(0, 1, (N_GAUSS, 3))
-    f = 900.0
+    out = {}
+    for mode, render_mode in BENCH_RUNS:
+        tm = BENCH_TIMING[render_mode]
+        seconds, device_ms, fn, args = bench.measure(
+            mode, 1, render_mode, "cuda", **tm)
+        line = bench.result_line(mode, 1, seconds, device_ms)
+        torch.cuda.synchronize()
+        # ---- the bench path, with the launch counts zeroed around it ----
+        K.composite_instances.launches = 0
+        K.composite_instances_bwd.launches = 0
+        with stages.record() as rec:
+            grads = fn(*args)
+        torch.cuda.synchronize()
+        launches = dict(composite_fwd=K.composite_instances.launches,
+                        composite_bwd=K.composite_instances_bwd.launches)
+        # ---------------------------------------------------------------
+        once = int(render_mode == "kernel")
+        if launches != dict(composite_fwd=once, composite_bwd=once):
+            raise AssertionError(f"bench {mode} {render_mode}: launches "
+                                 f"{launches}")
+        if not all(torch.isfinite(g).all() and g.abs().max() > 0
+                   for g in grads):
+            raise AssertionError(f"bench {mode} {render_mode}: a gradient is "
+                                 "not finite or all zero")
+        if not (line["value"] > 0 and np.isfinite(device_ms) and device_ms > 0):
+            raise AssertionError(f"bench {mode} {render_mode}: {line}")
+        note = ("" if render_mode == "kernel" else
+                f"; tiled: best of {tm['reps']} batches of {tm['iters']} "
+                f"calls (bench.py: 4 of 30), device_ms over "
+                f"{tm['replays']} replays")
+        print(f"[bench {mode} {render_mode}] {json.dumps(line)}", flush=True)
+        print(f"[bench {mode} {render_mode}] host {1e3 * seconds:.3f} ms a "
+              f"fwd+bwd, device {device_ms:.4f} ms, launches {launches}"
+              f"{note}; {card}", flush=True)
+        r = out[f"{mode}_{render_mode}"] = dict(
+            line=line, host_ms=1e3 * seconds, device_ms=device_ms,
+            launches=launches, timing=tm)
+        if render_mode == "kernel":
+            r["kernels"] = bench_kernels(f"bench{mode}", rec,
+                                         later if mode == "3d" else None)
+        if (mode, render_mode) == ("3d", "kernel"):
+            busy = r["device_busy"] = {}
+
+            def bench_busy(fn=fn, args=args, busy=busy):
+                busy.update(device_busy(lambda: fn(*args)))
+                print(f"[bench3d] under torch.profiler the card was busy "
+                      f"{busy['busy_ms']:.2f} ms of a {busy['wall_ms']:.2f} "
+                      f"ms fwd+bwd", flush=True)
+
+            later.append(bench_busy)
+    report["bench_phase"] = out
+    return out
+
+
+def tiled_phase(report, card):
+    """(a) ``composite_pixels`` (the O(P) backward) against
+    ``composite_pixels_ref`` (autograd through the scan) on the card at a
+    (64, 128) tile with its full capacity of 4096 Gaussians, both alpha
+    modes: the forward bit for bit, each gradient within 1e-5 of its
+    tensor's largest entry, both peak memories; (b) the 2D north-star
+    configuration in ``"tiled"`` mode at full width: the eval forward of
+    one frame over 6 views and 3 train steps; (c) ``graft_entry.entry()``
+    on the card against the same ``fn`` on the CPU, within 1e-4."""
+    import torch
+
+    from pose_splatter_torch import graft_entry
+    from pose_splatter_torch.data.dataset import FrameLoader
+    from pose_splatter_torch.models.pose_splatter import init_means2d_center
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.train.loop import create_train_state, make_train_step
+    from pose_splatter_torch.train.trainer import build_model
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import (
+        FrameSet,
+        ring_cameras,
+        synthetic_frames,
+    )
+
     dev = torch.device("cuda")
+    out = dict(card=card)
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    # (a) ----------------------------------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    n, th, tw = 4096, 64, 128
+    yy, xx = torch.meshgrid(torch.arange(th, dtype=torch.float32),
+                            torch.arange(tw, dtype=torch.float32),
+                            indexing="ij")
+    mean = torch.stack([torch.rand(n, generator=gen) * tw,
+                        torch.rand(n, generator=gen) * th], 1)
+    cases = dict(
+        ellipse=((mean, torch.rand(n, 2, generator=gen) * 2 + 0.7,
+                  torch.rand(n, generator=gen) * 3,
+                  torch.rand(n, generator=gen) * 0.6 + 0.3),
+                 R._alpha_ellipse, False, 0.0),
+        conic=((mean, torch.rand(n, 3, generator=gen)
+                * torch.tensor([0.3, 0.04, 0.3]) + torch.tensor([0.1, -0.02, 0.1]),
+                torch.rand(n, generator=gen) * 0.6 + 0.3),
+               R._alpha_conic, True, 0.5))
+    colors = torch.rand(n, 3, generator=gen).to(dev)
+    valid = (torch.rand(n, generator=gen) > 0.1).to(dev)
+    w = torch.rand(th * tw, 3, generator=gen).to(dev)
+    out["function_vs_ref"] = {}
+    for kind, (feats, alpha_fn, early, off) in cases.items():
+        xs = (xx.reshape(-1) + off).to(dev)
+        ys = (yy.reshape(-1) + off).to(dev)
+        res = []
+        for fn in (R.composite_pixels, R.composite_pixels_ref):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            f = [x.to(dev).requires_grad_() for x in feats]
+            c = colors.clone().requires_grad_()
+            rgb, alpha = fn(xs, ys, tuple(f), c, valid, alpha_fn, 32, early)
+            ((rgb * w).sum() + (alpha ** 2).sum()).backward()
+            torch.cuda.synchronize()
+            res.append(([rgb.detach(), alpha.detach()]
+                        + [x.grad for x in f] + [c.grad],
+                        torch.cuda.max_memory_allocated() - base))
+        (got, mem), (ref, ref_mem) = res
+        fwd_equal = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got[2:], ref[2:]))
+        out["function_vs_ref"][kind] = dict(
+            forward_bit_equal=fwd_equal, grad_rel_err=rel,
+            peak_bytes=mem, ref_peak_bytes=ref_mem,
+            alpha_max=float(got[1].max()))
+        print(f"[tiled] composite_pixels[{kind}] at P={th * tw}, N={n}: "
+              f"forward bit-equal {fwd_equal}, gradients {rel:.3g} of each "
+              f"tensor's largest (tol 1e-5); peak memory {mem / 1e6:.1f} MB, "
+              f"autograd through the scan {ref_mem / 1e6:.1f} MB", flush=True)
+        if not fwd_equal or not rel <= 1e-5:
+            raise AssertionError(f"composite_pixels[{kind}] disagrees with "
+                                 "composite_pixels_ref")
 
-    params = [t(x) for x in (means, quats, scales, opac, colors)]
-    Ks = t([[[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]]])
-    view = t(np.eye(4)[None])
-    bg = torch.ones(3, device=dev)
-
-    def fwd_bwd():
-        ps = [p.detach().requires_grad_(True) for p in params]
-        rgb, alpha, overflow = R.rasterize(*ps, view, Ks, W, H, backgrounds=bg,
-                                           mode="kernel", return_overflow=True)
-        loss = (rgb ** 2).sum() + (alpha ** 2).sum()
-        return loss.detach(), overflow, torch.autograd.grad(loss, ps)
-
-    fwd_bwd()  # warm-up: allocator, sort and gather workspaces
+    # (b) ----------------------------------------------------------------
+    config = north_star_config(render_mode="tiled")
+    Ks, Es = ring_cameras(VIEWS, W, H, focal=800.0, radius=0.6)
+    model = build_model(config, cameras=(Ks, Es), device="cuda", seed=0)
+    torch_default_weights(model.net)
+    init_means2d_center(model.net, W, H, anchored=True)
+    grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
+    frames = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0),
+                              (0.055, 0.032, 0.028), 4, seed=1)
+    obs = model.observed_views
     torch.cuda.synchronize()
-    # ---- the bench path, with the launch counts zeroed around it ----
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     K.composite_instances.launches = 0
     K.composite_instances_bwd.launches = 0
-    loss, overflow, grads = fwd_bwd()
+    frame_ms, overflow = [], []
+    for i in range(3):  # frame 0 warms up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rgb, alpha, ov = model(frames["mask"][i, obs], frames["img"][i, obs],
+                               frames["p_3d"][i], frames["angle"][i],
+                               list(range(VIEWS)), return_overflow=True)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t))
+        overflow.append(int(ov))
+    if rgb.shape != (VIEWS, H, W, 3) or not torch.isfinite(rgb).all():
+        raise AssertionError("tiled north star: bad eval forward")
+    state = create_train_state(model, config.lr)
+    step = make_train_step(model, state.optimizer, config.img_lambda,
+                           config.ssim_lambda)
+    batches = iter(FrameLoader(FrameSet(frames, obs, seed=2), batch_size=1,
+                               shuffle=False, prefetch=0))
+    step_ms, losses, step_overflow = [], [], []
+    for _ in range(3):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(metrics["total"]))
+        step_overflow.append(float(metrics["overflow"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = (K.composite_instances.launches,
+                K.composite_instances_bwd.launches)
+    out["north_star_tiled"] = dict(
+        frame_ms=frame_ms, eval_overflow=overflow, step_ms=step_ms,
+        losses=losses, step_overflow=step_overflow, peak_bytes=peak,
+        alpha_max=float(alpha.max()), compositor_launches=launches)
+    print(f"[tiled] 2D north star, render_mode tiled: eval forward of one "
+          f"frame x {VIEWS} views {', '.join(f'{x:.1f}' for x in frame_ms)} "
+          f"ms (frames 0-2), overflow {overflow}; train steps "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)} ms, losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}, overflow "
+          f"{step_overflow}; peak memory {peak / 1e9:.3f} GB above the start; "
+          f"compositor kernel launches {launches}", flush=True)
+    if not np.isfinite(losses).all() or launches != (0, 0) \
+            or not float(alpha.max()) > 0.1:
+        raise AssertionError("tiled north star: non-finite loss, a kernel "
+                             "launch or an empty image")
+    del model, state, step
+
+    # (c) ----------------------------------------------------------------
+    fn, args = graft_entry.entry()
+    rgb, alpha = fn(*args)
     torch.cuda.synchronize()
-    launches = dict(composite_fwd=K.composite_instances.launches,
-                    composite_bwd=K.composite_instances_bwd.launches)
-    # ---------------------------------------------------------------
-    if launches != dict(composite_fwd=1, composite_bwd=1):
-        raise AssertionError(f"bench shape: launches {launches}, expected one "
-                             "of each kernel")
-    if not np.isfinite(float(loss)) or not all(
-            torch.isfinite(g).all() for g in grads):
-        raise AssertionError("bench shape: non-finite loss or gradient")
     runs = []
-    for _ in range(20):
+    for _ in range(10):
+        t = time.perf_counter()
+        fn(*args)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fwd_bwd()
-        torch.cuda.synchronize()
-        runs.append(1e3 * (time.perf_counter() - t0))
-    ms = float(np.median(runs))
-    event_ms = cuda_ms(fwd_bwd, iters=20, warmup=0)
-    # Both kernels alone on the arrays this shape bins (one recorded run).
-    with stages.record() as rec:
-        fwd_bwd()
-    bargs = rec.values["kernel_bwd"][0]
-    inst, tb, astarts, counts, origins, jstop = bargs[:6]
-    tile, G = bargs[8], bargs[9]
-    fargs = (inst, astarts, counts, origins, tile, G, "conic")
-    fwd_ms = cuda_ms(lambda: K.composite_instances(*fargs, save_tbounds=True),
-                     20, 2)
-    bwd_ms = cuda_ms(lambda: K.composite_instances_bwd(*bargs), 20, 2)
-    kernels = dict(
-        fwd=split_stats("bench3d", "composite_fwd", inst.shape[0], counts,
-                        jstop, tile, G, fwd_ms,
-                        kernel_bound(astarts, counts, jstop, tile, G)["bound_ms"],
-                        lambda: K.composite_instances(*fargs, save_tbounds=True),
-                        later),
-        bwd=split_stats("bench3d", "composite_bwd", inst.shape[0], counts,
-                        jstop, tile, G, bwd_ms,
-                        bwd_bound(inst, astarts, counts, jstop, tile, G)["bound_ms"],
-                        lambda: K.composite_instances_bwd(*bargs), later))
-    busy = {}
-    out = dict(loss=float(loss), overflow=int(overflow), launches=launches,
-               ms_median=ms, ms_runs=runs, event_ms=event_ms,
-               mpix_s=H * W / ms / 1e3, card=card, kernels=kernels,
-               device_busy=busy)
-    print(f"[bench3d] 3D rasterize fwd+bwd at {W}x{H}, {N_GAUSS} Gaussians: "
-          f"{ms:.3f} ms (median of 20, host clock; CUDA events {event_ms:.3f} "
-          f"ms), {out['mpix_s']:.3f} Mpix/s, overflow {int(overflow)}, "
-          f"launches {launches}, loss {float(loss):.4f} on {card}", flush=True)
-
-    def bench_busy():
-        busy.update(device_busy(fwd_bwd))
-        print(f"[bench3d] under torch.profiler the card was busy "
-              f"{busy['busy_ms']:.2f} ms of a {busy['wall_ms']:.2f} ms "
-              f"fwd+bwd", flush=True)
-
-    later.append(bench_busy)
-    report["bench3d_phase"] = out
+        runs.append(1e3 * (time.perf_counter() - t))
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    rgb_c, alpha_c = fn_cpu({k: v.cpu() for k, v in args[0].items()},
+                            *args_cpu[1:])
+    err = max(float((rgb.cpu() - rgb_c).abs().max()),
+              float((alpha.cpu() - alpha_c).abs().max()))
+    out["graft_entry"] = dict(ms_median=float(np.median(runs)), ms_runs=runs,
+                              max_abs_err_vs_cpu=err,
+                              alpha_max=float(alpha.max()))
+    print(f"[tiled] graft_entry.entry(): {float(np.median(runs)):.2f} ms a "
+          f"call (median of 10, host clock), rgb {tuple(rgb.shape)}, "
+          f"max|card - CPU| {err:.3g} (tol 1e-4); {card}", flush=True)
+    if not err <= 1e-4 or not torch.isfinite(rgb).all():
+        raise AssertionError(f"graft entry: card and CPU differ by {err}")
+    report["tiled_phase"] = out
     return out
 
 
@@ -1574,7 +1790,8 @@ def main(argv=None) -> int:
         run("train3d", train_phase, "train3d_phase", cfg3, K_STEPS_3D, later)
         run("multistep3d", multistep_phase, "multistep3d_phase", cfg3,
             res["train3d"][2], later)
-        run("bench3d", bench3d_phase, card, later)
+        run("bench", bench_phase, card, later)
+        run("tiled", tiled_phase, card)
         run("synth", synth_phase)
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
@@ -1594,13 +1811,21 @@ def main(argv=None) -> int:
     (eval_launches, sk), (train_launches, tk, _) = res["eval2d"], res["train2d"]
     (e3_launches, e3), (t3_launches, t3, _) = res["eval3d"], res["train3d"]
     m2, m3 = res["multistep2d"], res["multistep3d"]
-    b3 = res["bench3d"]
+    bench_lines = res["bench"]
+
+    def bench_launches(kernel):
+        return {f"launches_bench_{m}": bench_lines[f"{m}_kernel"]["launches"][
+            kernel] for m in ("3d", "2d")}
     fwd_errs = [kp[m]["max_abs_err"] for m in kp] + [
         kp[m]["tbounds_max_abs_err"] for m in kp] + [
         sk["max_abs_err"], tk["fwd_max_abs_err"], e3["max_abs_err"],
-        t3["fwd_max_abs_err"]]
+        t3["fwd_max_abs_err"]] + [
+        bench_lines[f"{m}_kernel"]["kernels"]["fwd_max_abs_err"]
+        for m in ("3d", "2d")]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
-        tk["max_abs_err"], t3["max_abs_err"]]
+        tk["max_abs_err"], t3["max_abs_err"]] + [
+        bench_lines[f"{m}_kernel"]["kernels"]["bwd_max_abs_err"]
+        for m in ("3d", "2d")]
 
     kernels = {"kernels": [
         dict(name="composite_fwd", route="cuda",
@@ -1610,7 +1835,7 @@ def main(argv=None) -> int:
              launches_eval_path=eval_launches,
              launches_3d_eval=e3_launches,
              launches_3d_train=t3_launches["composite_fwd"],
-             launches_bench3d=b3["launches"]["composite_fwd"],
+             **bench_launches("composite_fwd"),
              launches_multistep_2d=m2["launches"]["composite_fwd"],
              launches_multistep_3d=m3["launches"]["composite_fwd"],
              max_abs_err=max(fwd_errs),
@@ -1627,7 +1852,7 @@ def main(argv=None) -> int:
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",
              launches=train_launches["composite_bwd"],
              launches_3d_train=t3_launches["composite_bwd"],
-             launches_bench3d=b3["launches"]["composite_bwd"],
+             **bench_launches("composite_bwd"),
              launches_multistep_2d=m2["launches"]["composite_bwd"],
              launches_multistep_3d=m3["launches"]["composite_bwd"],
              max_abs_err=max(bwd_errs), ms=tk["ms"], plain_ms=tk["plain_ms"],

@@ -4,9 +4,13 @@ The JAX package stays the reference; this package mirrors its module names
 (``ops/carving.py``, ``models/unet3d.py``, ``train/loop.py``, ...) so each
 counterpart is easy to find. It imports ``torch`` and never ``jax``.
 
-Covered so far: the 2D view-anchored eval forward (carve → residual U-Nets →
-Gaussian selection + MLP head → anchored projection → instance binning →
-the hand-written CUDA forward compositor → eval loss and metrics).
+Covered so far: the 2D (view-anchored) and 3D models in eval and train
+(carve → residual U-Nets → Gaussian selection + MLP head → projection →
+binning → the hand-written CUDA compositors, or the ``"tiled"`` and
+``"global"`` compositors in plain PyTorch → losses, Adam, K steps a call),
+the renderer facade, and the counterparts of ``bench.py``
+(``scripts/bench.py``), ``__graft_entry__.py::entry`` (``graft_entry.py``)
+and ``scripts/synthetic_benchmark.py``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise instead of running on the CPU.

@@ -330,6 +330,7 @@ class PoseSplatter(nn.Module):
         background_color: Sequence[float] = (1.0, 1.0, 1.0),
         render_mode: str = "kernel",
         tile_shape: Optional[Tuple[int, int]] = None,
+        tile_capacity: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ):
@@ -354,6 +355,7 @@ class PoseSplatter(nn.Module):
         self.gaussian_config = dict(gaussian_config or {})
         self.render_mode = render_mode
         self.tile_shape = tile_shape
+        self.tile_capacity = tile_capacity
 
         C = len(intrinsics)
         self.num_cameras = C
@@ -495,8 +497,9 @@ class PoseSplatter(nn.Module):
                 torch.sigmoid(g["logit_opacities"]), g["colors"],
                 self.viewmats[view_idx], self.Ks[view_idx], self.W, self.H,
                 valid=g["valid"], backgrounds=self.background_color,
-                tile_shape=self.tile_shape, tile_expand=self.tile_expand,
-                mode=self.render_mode, return_overflow=True)
+                tile_shape=self.tile_shape, tile_capacity=self.tile_capacity,
+                tile_expand=self.tile_expand, mode=self.render_mode,
+                return_overflow=True)
         B = view_idx.shape[0]
         if "anchor_means" in g:
             pix = project_points(g["anchor_means"], self.Ks[view_idx],
@@ -509,8 +512,8 @@ class PoseSplatter(nn.Module):
             torch.sigmoid(g["logit_opacities"]), g["colors"], self.W, self.H,
             valid=g["valid"], background=self.background_color,
             sigma_cutoff=self.sigma_cutoff, tile_shape=self.tile_shape,
-            tile_expand=self.tile_expand, mode=self.render_mode,
-            return_overflow=True)
+            tile_capacity=self.tile_capacity, tile_expand=self.tile_expand,
+            mode=self.render_mode, return_overflow=True)
         if "anchor_means" not in g:
             rgb = rgb[None].expand(B, *rgb.shape)
             alpha = alpha[None].expand(B, *alpha.shape)
@@ -576,6 +579,7 @@ class PoseSplatter(nn.Module):
             means, quats, scales, opacities, colors, viewmats, Ks, width,
             height, valid=valid, backgrounds=None, near_plane=0.01,
             far_plane=1e10, radius_clip=radius_clip, mode=self.render_mode,
-            tile_shape=self.tile_shape, tile_expand=self.tile_expand)
+            tile_shape=self.tile_shape, tile_capacity=self.tile_capacity,
+            tile_expand=self.tile_expand)
         rgb = rgb + (1.0 - alpha[..., None]) * self.background_color
         return torch.clamp(rgb, 0.0, 1.0), alpha

@@ -1,1 +1,2 @@
-"""Command-line probes of the port (run with ``python -m``)."""
+"""Command-line entry points and probes of the port (run with
+``python -m``)."""

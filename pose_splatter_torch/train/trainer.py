@@ -6,8 +6,7 @@ train step: per-epoch training over shuffled frames, validation every
 
 Not ported yet: the plots (the JAX trainer skips them when their import
 fails; here they are always skipped until viz is ported), ``remat_unets``,
-``adaptive_camera``, ``carve_visibility_cap`` and the ``"tiled"`` render
-mode (all raise).
+``adaptive_camera`` and ``carve_visibility_cap`` (all raise).
 """
 
 from __future__ import annotations
@@ -51,21 +50,18 @@ def build_model(
     ``"kernel"``: the hand-written compositor on a CUDA device, its plain
     PyTorch version on the CPU (chosen by where the tensors lie; there is
     no fallback between the two). The JAX package's name ``"pallas"`` is
-    taken as ``"kernel"``. ``cameras`` = (intrinsics [C,3,3], extrinsics
-    [C,4,4]) replaces loading ``config.camera_fn``.
+    taken as ``"kernel"``; ``"tiled"`` (the JAX package's default off the
+    TPU) and ``"global"`` run in plain PyTorch. ``cameras`` = (intrinsics
+    [C,3,3], extrinsics [C,4,4]) replaces loading ``config.camera_fn``.
 
     Keys of the JAX configuration that the port does not run yet raise
     here rather than being dropped: ``carve_visibility_cap`` (ROADMAP.md
-    A.4) and the ``"tiled"`` render mode (A.7).
+    A.4).
     """
     if render_mode is None:
         render_mode = config.get("render_mode", "kernel")
     render_mode = {"pallas": "kernel"}.get(render_mode, render_mode)
-    if render_mode == "tiled":
-        raise NotImplementedError(
-            "render_mode 'tiled' (the XLA tiled compositor) is not ported "
-            "yet (ROADMAP.md A.7); use 'kernel' or 'global'")
-    if render_mode not in ("kernel", "global"):
+    if render_mode not in ("kernel", "tiled", "global"):
         raise ValueError(f"unknown render_mode {render_mode!r}")
     if config.get("carve_visibility_cap") is not None:
         raise NotImplementedError(

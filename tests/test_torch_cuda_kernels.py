@@ -11,7 +11,10 @@ of no whole quads and for misaligned views), the widest axis-1 row, and
 bit-identical reruns. The train step captured in a CUDA graph
 (``make_train_multi_step``) against the eager step in both modes, its
 selection flag, the selection's device route against the host loops, and
-capturable Adam against the eager update.
+capturable Adam against the eager update. The bench counterpart and
+``graft_entry.entry`` turning TF32 off, the bench's fwd+bwd on the card
+against the CPU's and its CUDA-graph capture in kernel and tiled mode,
+and the O(P) ``composite_pixels`` against autograd through its scan.
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
 (the kernel has no CPU mode). On a machine with an NVIDIA GPU and ``nvcc``:
@@ -744,3 +747,105 @@ def test_capturable_adam_against_the_eager_update(dev):
     # the eager update rounds float64 corrections once. Bound: 2 ulp of
     # the parameter plus 2e-5 of the 5 updates' largest sum, 5·lr.
     assert bool((diff <= 2 * ulp + 2e-5 * 5 * 1e-3).all())
+
+
+# ----------------------------------------------------------------------------
+# The bench and the single-device entry; the O(P) compositor on the card.
+# ----------------------------------------------------------------------------
+
+BENCH_SMALL = dict(H=48, W=80, N=300)
+
+
+@pytest.mark.parametrize("entry_point", ["bench3d", "bench2d", "graft_entry"])
+def test_new_entry_points_turn_tf32_off(dev, monkeypatch, entry_point):
+    """The bench's setups and ``graft_entry.entry`` take the card through
+    ``resolve_device``, which turns TF32 off for cuDNN and matmuls."""
+    from pose_splatter_torch import graft_entry
+    from pose_splatter_torch.scripts import bench
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    if entry_point == "graft_entry":
+        graft_entry.entry()
+    else:
+        setup = bench.fwd_bwd_3d if entry_point == "bench3d" else bench.fwd_bwd_2d
+        setup(1, device="cuda", **BENCH_SMALL)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("mode", ["3d", "2d"])
+@pytest.mark.parametrize("render_mode", ["kernel", "tiled"])
+def test_bench_on_the_card_matches_the_cpu(dev, mode, render_mode):
+    """The bench's fwd+bwd on the card against the same mode on the CPU,
+    gradients within 3e-4 of each tensor's largest entry (see the 3D test
+    above for why not the images' 1e-5); kernel mode launches each
+    compositor once a frame, tiled mode none."""
+    from pose_splatter_torch.scripts import bench
+
+    setup = bench.fwd_bwd_3d if mode == "3d" else bench.fwd_bwd_2d
+    outs = []
+    for d in ("cuda", "cpu"):
+        fn, args = setup(2, render_mode, d, **BENCH_SMALL)
+        fwd, bwd = tk.composite_instances.launches, tk.composite_instances_bwd.launches
+        outs.append([g.cpu() for g in fn(*args)])
+        launched = (tk.composite_instances.launches - fwd,
+                    tk.composite_instances_bwd.launches - bwd)
+        frames = 2 if mode == "2d" else 1
+        expect = ((frames, frames) if d == "cuda" and render_mode == "kernel"
+                  else (0, 0))
+        assert launched == expect
+    for a, b in zip(*outs):
+        assert float(b.abs().max()) > 0
+        assert ((a - b).abs() <= 3e-4 * b.abs().max()).all()
+
+
+@pytest.mark.parametrize("mode", ["3d", "2d"])
+@pytest.mark.parametrize("render_mode", ["kernel", "tiled"])
+def test_bench_device_time_captures(dev, mode, render_mode):
+    """``device_ms`` comes from a CUDA graph of one fwd+bwd: the capture
+    must take every launch of either mode (a capture that fails raises)."""
+    from pose_splatter_torch.scripts import bench
+
+    setup = bench.fwd_bwd_3d if mode == "3d" else bench.fwd_bwd_2d
+    fn, args = setup(1, render_mode, "cuda", **BENCH_SMALL)
+    ms = bench.graph_device_ms(fn, args, replays=3)
+    assert 0 < ms < 1e3
+
+
+@pytest.mark.parametrize("kind", ["ellipse", "conic"])
+def test_composite_pixels_on_the_card_matches_ref(dev, kind):
+    """The O(P) Function against autograd through the scan on the card:
+    the same forward bit for bit, gradients within 1e-5 of the largest."""
+    gen = torch.Generator().manual_seed(3)
+    n, P = 200, 1024
+    xs = (torch.rand(P, generator=gen) * 64).to(dev)
+    ys = (torch.rand(P, generator=gen) * 16).to(dev)
+    mean = torch.stack([torch.rand(n, generator=gen) * 64,
+                        torch.rand(n, generator=gen) * 16], 1)
+    if kind == "ellipse":
+        feats = (mean, torch.rand(n, 2, generator=gen) * 2 + 0.5,
+                 torch.rand(n, generator=gen) * 3,
+                 torch.rand(n, generator=gen) * 0.6 + 0.3)
+        alpha_fn, early = tr._alpha_ellipse, False
+    else:
+        feats = (mean, torch.rand(n, 3, generator=gen) * torch.tensor(
+            [0.4, 0.05, 0.4]) + torch.tensor([0.2, -0.025, 0.2]),
+            torch.rand(n, generator=gen) * 0.6 + 0.3)
+        alpha_fn, early = tr._alpha_conic, True
+    colors = torch.rand(n, 3, generator=gen)
+    valid = torch.rand(n, generator=gen) > 0.2
+    w = torch.rand(P, 3, generator=gen).to(dev)
+    outs = []
+    for fn in (tr.composite_pixels, tr.composite_pixels_ref):
+        f = [x.to(dev).requires_grad_() for x in feats]
+        c = colors.to(dev).requires_grad_()
+        rgb, alpha = fn(xs, ys, tuple(f), c, valid.to(dev), alpha_fn, 32,
+                        early)
+        ((rgb * w).sum() + (alpha ** 2).sum()).backward()
+        outs.append([rgb.detach(), alpha.detach()]
+                    + [x.grad for x in f] + [c.grad])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    for a, b in zip(outs[0][2:], outs[1][2:]):
+        assert ((a - b).abs() <= 1e-5 * b.abs().max()).all()

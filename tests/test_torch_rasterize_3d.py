@@ -172,7 +172,7 @@ def test_permute_rows_backward_gathers_by_the_inverse():
 def test_rasterize_rejects_an_unknown_mode():
     g = _scene(4, 5)
     Es, Ks = _cameras()
-    with pytest.raises(ValueError, match="tiled"):
+    with pytest.raises(ValueError, match="splat"):
         tr.rasterize(*[torch.from_numpy(g[k]) for k in NAMES],
                      torch.from_numpy(Es), torch.from_numpy(Ks), W, H,
-                     mode="tiled")
+                     mode="splat")
