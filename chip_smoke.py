@@ -19,7 +19,7 @@ spill), then:
    back-to-back calls of ``dyngather.launch``, so the host's Python sets
    it), (b) on the device (200 launches captured in one CUDA graph,
    replayed between CUDA events), (c) the kernel's own duration from
-   ``torch.profiler`` (phase 11), and (e) the launch floor, (b) for a
+   ``torch.profiler`` (phase 15), and (e) the launch floor, (b) for a
    one-element ``zero_()``;
 3. kernel phase: the forward compositor (with and without its ``tbounds``
    store) and the backward compositor on synthetic instance arrays at the
@@ -78,14 +78,36 @@ spill), then:
    ``SYNTH_BENCH.json``'s shape (576x512, grid 128, crop 96x80x64, 6
    cameras, view-anchored 2D) for 64 steps, 8 a call, with the per-camera
    evaluation: its report printed and checked;
-11. profiled: what ``torch.profiler`` measures, deferred to after every
+11. carve_cap: ``carve_volume`` at the 2D north star's crop (491,520
+   voxels): the occupied counts, the carve timed exact, with a cap that
+   fits and with the cap N/8 = 61,440 (host-launched, and on the device by
+   CUDA-graph replay), each overflow; the
+   fitting cap within 1e-6 of the exact carve; an eval forward with the
+   fitting cap against none; ``make_train_multi_step`` with the cap N/8
+   against eager steps (as phase 7);
+12. adaptive3d: ``configs/baseline/pigeon_4.json`` as written (4 cameras
+   at 656x320, grid 80, crop 80^3, 3D, adaptive camera): ``train_from_
+   config`` for 6 steps, 3 steps timed whole, ``render_images_in_memory``
+   over 3 frames, the launches, both compositors against their plain
+   versions on one adaptive step's arrays, each frame's ``temp_K`` shift;
+13. remat2d: ``configs/templates/tpu_2d_highres.json`` as written
+   (1152x1024, grid 256, crop 192x160x128): twin models with and without
+   ``remat_unets`` from the same weights, 2 deterministic steps compared
+   (1e-6 relative), 2 steps timed whole with the peak device memory above
+   the phase's start, both compositors against their plain versions on a
+   remat step's arrays (the backward against float64 where its columns
+   cancel);
+14. bridge: the 2D train phase's state to the JAX payload tree (inverse
+   bridge, Adam converter) and back, bit-equal; a step resumed from the
+   converted checkpoint file equals one from the original;
+15. profiled: what ``torch.profiler`` measures, deferred to after every
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
    card's busy share of one more train step in each mode, of a K-step
    call beside an eager step, and of a bench-shape fwd+bwd
    (``device_busy``).
 
-``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 11
+``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 15
 for the gather. It prints the gather rows and the card, not the final
 ``ok`` line. The script measures the port of the tree it sits in, so a
 copy of it placed at the root of another commit's checkout measures that
@@ -152,6 +174,22 @@ EXTRA_PASSES = 3  # passes over the K_EXTRA frames timed whole
 # against the eager steps' (relative to the largest loss).
 MS_K = 8
 MS_LOSS_RTOL = 1e-5
+# The carve-cap phase: frames, CUDA-event iterations a carve, and the
+# tolerance of the capped carve (a [C, M] colour einsum reduces otherwise
+# than the [C, N] one; the JAX package's own tests hold it within 1e-6)
+# and of the eval forward with and without the cap (the CPU parity bar).
+CAP_FRAMES = 4
+CAP_ITERS = 10
+CAP_TOL = 1e-6
+CAP_FWD_TOL = 1e-4
+# The adaptive phase: pigeon_4.json's 4 cameras; an ellipsoid off the crop's
+# centre that fits its 80 mm crop.
+CAMERAS_PIGEON = 4
+PIGEON_OFFSET = (0.006, -0.004, 0.003)
+PIGEON_AXES = (0.025, 0.015, 0.013)
+# The remat phase: losses and weights after 2 steps with and without remat,
+# relative to each tensor's largest entry.
+REMAT_RTOL = 1e-6
 
 
 def card_line() -> str:
@@ -352,6 +390,41 @@ def bwd_error(got, ref, jstop, tile_shape, G):
     return rel, 4 * EPS32 * (P * rows) ** 0.5
 
 
+def bwd_float64_check(tag, d, d_ref, bargs, tol):
+    """Where the kernel's backward is farther from its float32 plain
+    version than ``bwd_error``'s bound, hold both against the plain
+    version run in float64: each column's error is a sum of float32
+    roundings of the terms, which the bound scales by the column's largest
+    result; where the terms cancel (dL/da = w·T − S/(1 − a) over many
+    Gaussians stacked on one spot, say), the result is far smaller than
+    the terms and so is the bound. The kernel passes if no column of it is
+    farther from the float64 result than twice the float32 plain
+    version's distance plus the bound; it fails otherwise."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+
+    args64 = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                   else x for x in bargs)
+    d64 = K.composite_instances_bwd_ref(*args64)
+    scale = d64.abs().amax(dim=0)
+    ek = (d.double() - d64).abs().amax(dim=0)
+    ep = (d_ref.double() - d64).abs().amax(dim=0)
+    bad = ek > 2 * ep + tol * scale
+    cols = [i for i in range(d.shape[1]) if float(scale[i]) > 0]
+    print(f"[{tag}] composite_bwd against its plain version in float64, by "
+          f"column (largest |exact|, kernel's and float32 plain's largest "
+          f"error): " + "; ".join(
+              f"{i}: {float(scale[i]):.3g}, {float(ek[i]):.3g}, "
+              f"{float(ep[i]):.3g}" for i in cols), flush=True)
+    if bool(bad.any()):
+        raise AssertionError(f"[{tag}] backward kernel disagrees with the "
+                             f"float64 plain version in columns "
+                             f"{torch.nonzero(bad).reshape(-1).tolist()}")
+    return dict(exact_scale=scale.tolist(), kernel_err=ek.tolist(),
+                plain32_err=ep.tolist())
+
+
 # ----------------------------------------------------------------------------
 # Phases.
 # ----------------------------------------------------------------------------
@@ -536,15 +609,11 @@ def eval_phase(report, key, config, mode, later):
     from pose_splatter_torch.train.losses import total_loss
     from pose_splatter_torch.train.trainer import build_model
     from pose_splatter_torch.utils import stages
-    from pose_splatter_torch.utils.geometry import create_3d_grid
-    from pose_splatter_torch.utils.synthetic import (
-        FrameSet,
-        ring_cameras,
-        synthetic_frames,
-    )
+    from pose_splatter_torch.utils.synthetic import FrameSet
 
     Wc, Hc = config.render_width, config.render_height
-    Ks, Es = ring_cameras(VIEWS, Wc, Hc, focal=800.0 * Wc / W, radius=0.6)
+    n_frames = 3
+    Ks, Es, frames = ring_scene(config, VIEWS, n_frames, seed=0)
     t0 = time.perf_counter()
     model = build_model(config, cameras=(Ks, Es), device="cuda", seed=0)
     torch_default_weights(model.net)
@@ -556,11 +625,6 @@ def eval_phase(report, key, config, mode, later):
           f"{model.observed_views}), built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
-    crop_center = grid.reshape(-1, 3).mean(0)
-    n_frames = 3
-    frames = synthetic_frames(Ks, Es, Hc, Wc, crop_center, (0.055, 0.032, 0.028),
-                              n_frames, seed=0)
     data = FrameSet(frames, model.observed_views)
     step = make_eval_step(model, config.img_lambda, config.ssim_lambda)
     # Eval batch: each frame renders one observed view against its target.
@@ -729,14 +793,49 @@ def north_star_config(**overrides):
 def config_3d(**overrides):
     """``configs/templates/tpu_3d.json`` as written (min_n, max_n, U-Net
     count and width are the model's defaults: 1024, 16000, 3, 8)."""
-    from pose_splatter_torch.config import Config
-
-    cfg = json.loads((ROOT / "configs" / "templates" / "tpu_3d.json").read_text())
-    cfg.update(overrides)
-    config = Config(cfg)
+    config = template_config("configs/templates/tpu_3d.json", **overrides)
     assert config.gaussian_mode == "3d"
     assert (config.render_width, config.render_height) == (W3, H3)
     return config
+
+
+def template_config(path, **overrides):
+    """A configuration file of the repository as written (bar
+    ``overrides``)."""
+    from pose_splatter_torch.config import Config
+
+    cfg = json.loads((ROOT / path).read_text())
+    cfg.update(overrides)
+    return Config(cfg)
+
+
+def ring_scene(config, n_views, n_frames, seed=1, offset=(0.0, 0.0, 0.0),
+               axes=(0.055, 0.032, 0.028)):
+    """``n_views`` ring cameras at ``config``'s render size and synthetic
+    frames of an ellipsoid at the crop's centre (+ ``offset``), as the
+    train phases draw them."""
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import ring_cameras, synthetic_frames
+
+    Wc, Hc = config.render_width, config.render_height
+    Ks, Es = ring_cameras(n_views, Wc, Hc, focal=800.0 * Wc / W, radius=0.6)
+    grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
+    frames = synthetic_frames(Ks, Es, Hc, Wc,
+                              grid.reshape(-1, 3).mean(0) + np.asarray(offset),
+                              axes, n_frames, seed=seed)
+    return Ks, Es, frames
+
+
+def fresh_start(model):
+    """``train_from_config``'s fresh start: near-identity U-Nets and, in 2D,
+    the means' and scale's start."""
+    from pose_splatter_torch.models.pose_splatter import init_means2d_center
+    from pose_splatter_torch.models.unet3d import init_unet_primary_skip
+
+    init_unet_primary_skip(model.net, in_channels=model.in_channels)
+    if model.gaussian_mode == "2d":
+        init_means2d_center(model.net, model.W, model.H,
+                            anchored=model.view_anchored_2d)
 
 
 def dyngather_bound(S: int, L: int, reps: int):
@@ -1007,11 +1106,14 @@ BENCH_TIMING = {"kernel": dict(iters=30, reps=4, replays=20),
                 "tiled": dict(iters=3, reps=2, replays=3)}
 
 
-def bench_kernels(tag, rec, later):
+def bench_kernels(tag, rec, later, cancelling=False):
     """Both compositors against their plain versions on the instance
     arrays one bench fwd+bwd binned and the ``tbounds`` and pixel gradients
     its backward got (``rec``): the forward within TOL with ``jstop``
-    equal, the backward within ``bwd_error``'s bound. In 3D also each alone
+    equal, the backward within ``bwd_error``'s bound, or, for arrays whose
+    gradient columns cancel (``cancelling``: the highres fresh start, every
+    Gaussian on one pixel), where that bound does not hold, within
+    ``bwd_float64_check``'s. In 3D also each alone
     on those arrays, timed with CUDA events, and how it spread over the
     card (``split_stats``)."""
     import torch
@@ -1035,8 +1137,8 @@ def bench_kernels(tag, rec, later):
                fwd_max_abs_err=fwd_err, jstop_equal=bool(torch.equal(fg[2], fr[2])),
                bwd_max_abs_err=float((d - d_ref).abs().max()), bwd_rel_err=rel,
                bwd_rel_tol=tol)
-    print(f"[{tag}] on the bench's own arrays ({kmode}, {out['rows']} rows, "
-          f"overflow {out['overflow']}): composite_fwd max|kernel-plain| "
+    print(f"[{tag}] on the arrays its fwd+bwd binned ({kmode}, {out['rows']} "
+          f"rows, overflow {out['overflow']}): composite_fwd max|kernel-plain| "
           f"{fwd_err:.3g} (tol {TOL}), jstop equal {out['jstop_equal']}; "
           f"composite_bwd max|kernel-plain| {out['bwd_max_abs_err']:.3g}, "
           f"{rel:.3g} of each column's largest (tol {tol:.3g})", flush=True)
@@ -1044,8 +1146,10 @@ def bench_kernels(tag, rec, later):
         raise AssertionError(f"[{tag}] forward kernel disagrees on the "
                              f"bench's arrays ({fwd_err}) or jstop does")
     if not rel <= tol:
-        raise AssertionError(f"[{tag}] backward kernel disagrees on the "
-                             f"bench's arrays ({rel} > {tol})")
+        if not cancelling:
+            raise AssertionError(f"[{tag}] backward kernel disagrees on the "
+                                 f"bench's arrays ({rel} > {tol})")
+        out["float64"] = bwd_float64_check(tag, d, d_ref, bargs, tol)
     if later is not None:
         fwd_ms = cuda_ms(lambda: K.composite_instances(*fargs, save_tbounds=True),
                          20, 2)
@@ -1151,12 +1255,7 @@ def tiled_phase(report, card):
     from pose_splatter_torch.ops import rasterize_kernels as K
     from pose_splatter_torch.train.loop import create_train_state, make_train_step
     from pose_splatter_torch.train.trainer import build_model
-    from pose_splatter_torch.utils.geometry import create_3d_grid
-    from pose_splatter_torch.utils.synthetic import (
-        FrameSet,
-        ring_cameras,
-        synthetic_frames,
-    )
+    from pose_splatter_torch.utils.synthetic import FrameSet
 
     dev = torch.device("cuda")
     out = dict(card=card)
@@ -1216,13 +1315,10 @@ def tiled_phase(report, card):
 
     # (b) ----------------------------------------------------------------
     config = north_star_config(render_mode="tiled")
-    Ks, Es = ring_cameras(VIEWS, W, H, focal=800.0, radius=0.6)
+    Ks, Es, frames = ring_scene(config, VIEWS, 4, seed=1)
     model = build_model(config, cameras=(Ks, Es), device="cuda", seed=0)
     torch_default_weights(model.net)
     init_means2d_center(model.net, W, H, anchored=True)
-    grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
-    frames = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0),
-                              (0.055, 0.032, 0.028), 4, seed=1)
     obs = model.observed_views
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1321,20 +1417,11 @@ def train_phase(report, key, config, k_steps, later):
     from pose_splatter_torch.train.loop import make_train_step
     from pose_splatter_torch.train.trainer import train_from_config
     from pose_splatter_torch.utils import stages
-    from pose_splatter_torch.utils.geometry import create_3d_grid
-    from pose_splatter_torch.utils.synthetic import (
-        FrameSet,
-        ring_cameras,
-        synthetic_frames,
-    )
+    from pose_splatter_torch.utils.synthetic import FrameSet
     from pose_splatter_torch.data.dataset import FrameLoader
 
-    Wc, Hc = config.render_width, config.render_height
-    Ks, Es = ring_cameras(VIEWS, Wc, Hc, focal=800.0 * Wc / W, radius=0.6)
-    grid = create_3d_grid(config.ell, config.grid_size, config.volume_idx)
     t0 = time.perf_counter()
-    frames = synthetic_frames(Ks, Es, Hc, Wc, grid.reshape(-1, 3).mean(0),
-                              (0.055, 0.032, 0.028), k_steps + K_EXTRA, seed=1)
+    Ks, Es, frames = ring_scene(config, VIEWS, k_steps + K_EXTRA, seed=1)
     observed = [v for v in range(VIEWS) if v not in config.holdout_views]
     train = FrameSet(frames, observed, seed=2)
     valid = FrameSet({k: v[:2] for k, v in frames.items()}, observed,
@@ -1718,6 +1805,469 @@ def synth_phase(report):
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phases of the carve's visibility cap, the adaptive camera, remat_unets and
+# checkpoints across the two packages.
+# ----------------------------------------------------------------------------
+
+def carve_cap_phase(report, later):
+    """(a) ``carve_volume`` at the 2D north star's crop (96x80x64 = 491,520
+    voxels) on the phase's synthetic frames: the occupied counts, then the
+    carve timed exact, with a cap that fits (the largest
+    second-threshold count rounded up to 1024) and with the production
+    cap N/8 = 61,440, each with its overflow, by CUDA events around calls
+    (the host launches them) and on the device (calls captured in a CUDA
+    graph and replayed: the carve holds no read-back); the cap that fits within
+    CAP_TOL of the exact carve with the occupancy and overflow exact. Then
+    one eval forward of 6 views with the fitting cap against the forward
+    without it, and ``make_train_multi_step`` with the cap N/8 (8 steps a
+    call, one captured step replayed) against 8 eager steps
+    (``multistep_phase``)."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.ops.carving import carve_volume
+    from pose_splatter_torch.train.loop import create_train_state
+    from pose_splatter_torch.train.trainer import build_model
+
+    config = north_star_config(
+        project_directory=str(ROOT / "build" / "carve_cap"))
+    Ks, Es, frames = ring_scene(config, VIEWS, CAP_FRAMES)
+    model = build_model(config, cameras=(Ks, Es), device="cuda", seed=0)
+    obs = model.observed_views
+    N = int(np.prod(model.input_size))
+    assert N == 491_520
+    cap_prod = N // 8
+
+    # The frames on the card once: a carve then enqueues device work only
+    # (no copy, no read-back), so a CUDA graph can hold it.
+    inputs = [tuple(model._tensor(x) for x in (
+        frames["mask"][f, obs], frames["img"][f, obs], frames["p_3d"][f],
+        frames["angle"][f])) for f in range(CAP_FRAMES)]
+
+    def carve(f, cap):
+        return carve_volume(
+            *inputs[f], model.grid, None, model.Ks_obs, model.viewmats_obs,
+            volume_fill_color=model.volume_fill_color, visibility_cap=cap,
+            return_overflow=True)
+
+    counts = []
+    for f in range(CAP_FRAMES):
+        vol, _ = carve(f, None)
+        counts.append(dict(occ1=int((vol[0] == 1).sum()),
+                           occ2=int((vol[0] > 0).sum())))
+    fit = -(-max(c["occ2"] for c in counts) // 1024) * 1024
+    print(f"[carve_cap] {N} voxels; occupied (first / second threshold) "
+          + ", ".join(f"frame {f}: {c['occ1']} / {c['occ2']}"
+                      for f, c in enumerate(counts))
+          + f"; caps: fits {fit}, N/8 {cap_prod}", flush=True)
+    runs = {}
+    exact = [carve(f, None)[0] for f in range(CAP_FRAMES)]
+    for name, cap in (("exact", None), ("fits", fit), ("n_over_8", cap_prod)):
+        ms = [cuda_ms(lambda f=f: carve(f, cap), CAP_ITERS, 2)
+              for f in range(CAP_FRAMES)]
+        dev_ms = [graph_ms(lambda f=f: carve(f, cap), CAP_ITERS, 3)
+                  for f in range(CAP_FRAMES)]
+        outs = [carve(f, cap) for f in range(CAP_FRAMES)]
+        errs = [float((v - e).abs().max()) for (v, _), e in zip(outs, exact)]
+        occ_equal = all(torch.equal(v[0], e[0]) for (v, _), e in zip(outs, exact))
+        runs[name] = dict(cap=cap, ms=ms, ms_mean=float(np.mean(ms)),
+                          device_ms=dev_ms,
+                          device_ms_mean=float(np.mean(dev_ms)),
+                          overflow=[int(o) for _, o in outs],
+                          max_abs_diff_from_exact=max(errs),
+                          occupancy_equal=occ_equal,
+                          bit_equal=all(torch.equal(v, e) for (v, _), e
+                                        in zip(outs, exact)))
+        r = runs[name]
+        print(f"[carve_cap] {name} (cap {cap}): a carve (frames "
+              f"0-{CAP_FRAMES - 1}) host-launched "
+              + ", ".join(f"{x:.4f}" for x in ms)
+              + f" ms (CUDA events around {CAP_ITERS} calls), device "
+              + ", ".join(f"{x:.4f}" for x in dev_ms)
+              + f" ms ({CAP_ITERS} calls in a CUDA graph, 3 replays); "
+              f"overflow {r['overflow']}; max|carve - exact| "
+              f"{r['max_abs_diff_from_exact']:.3g}, occupancy equal "
+              f"{occ_equal}, bit-equal {r['bit_equal']}", flush=True)
+    f_run = runs["fits"]
+    if any(f_run["overflow"]) or not f_run["occupancy_equal"] or not (
+            f_run["max_abs_diff_from_exact"] <= CAP_TOL):
+        raise AssertionError(f"[carve_cap] the fitting cap disagrees with "
+                             f"the exact carve: {f_run}")
+    if not runs["n_over_8"]["occupancy_equal"]:
+        raise AssertionError("[carve_cap] the cap N/8 changed the occupancy")
+
+    # ---- one eval forward with the fitting cap, against none ----
+    fresh_start(model)
+    view_idx = torch.arange(VIEWS, device="cuda")
+    args = (frames["mask"][0, obs], frames["img"][0, obs], frames["p_3d"][0],
+            frames["angle"][0], view_idx)
+    model.carve_visibility_cap = None
+    rgb0, alpha0 = model(*args)
+    model.carve_visibility_cap = fit
+    K.composite_instances.launches = 0
+    rgb1, alpha1 = model(*args)
+    torch.cuda.synchronize()
+    eval_launches = K.composite_instances.launches
+    fwd_diff = max(float((rgb1 - rgb0).abs().max()),
+                   float((alpha1 - alpha0).abs().max()))
+    fwd_equal = torch.equal(rgb1, rgb0) and torch.equal(alpha1, alpha0)
+    print(f"[carve_cap] eval forward of {VIEWS} views with the cap {fit} "
+          f"against none: max|diff| {fwd_diff:.3g} (tol {CAP_FWD_TOL}), "
+          f"bit-equal {fwd_equal}; composite_fwd launches {eval_launches}",
+          flush=True)
+    if not fwd_diff <= CAP_FWD_TOL or eval_launches != 1:
+        raise AssertionError("[carve_cap] the capped eval forward disagrees")
+
+    # ---- K steps a call with the cap N/8, against eager steps ----
+    del model
+    cfg = north_star_config(carve_visibility_cap=cap_prod,
+                            project_directory=str(ROOT / "build" / "carve_cap"))
+    model = build_model(cfg, cameras=(Ks, Es), device="cuda", seed=0)
+    fresh_start(model)
+    trained = dict(state=create_train_state(model, cfg.lr), frames=frames,
+                   observed=obs, cameras=(Ks, Es))
+    ms = multistep_phase(report, "carve_cap_multistep", cfg, trained, [])
+    report["carve_cap_phase"] = out = dict(
+        voxels=N, occupied=counts, caps=dict(fits=fit, n_over_8=cap_prod),
+        runs=runs, eval_max_abs_diff=fwd_diff, eval_bit_equal=fwd_equal,
+        eval_launches=eval_launches, multistep_launches=ms["launches"])
+    return out
+
+
+def adaptive3d_phase(report, card, later):
+    """(b) ``configs/baseline/pigeon_4.json`` as written (4 ring cameras at
+    656x320, grid 80, crop 80^3 = 512,000 voxels, 3D, adaptive camera, ell
+    0.08, lr 1e-4, ssim_lambda 0, no holdout) on synthetic frames of an
+    ellipsoid off the crop's centre: ``train_from_config`` for 6 steps
+    (the loaders run the adaptive hook), 3 more steps timed whole,
+    ``render_images_in_memory`` over 3 frames (each frame's ``temp_K`` and
+    seed), the launches of both; then both compositors against their plain
+    versions on the arrays one recorded adaptive train step binned
+    (``bench_kernels``), and each frame's ``temp_K`` shift from K."""
+    import torch
+
+    from pose_splatter_torch.data.dataset import FrameLoader
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.train.evaluate import render_images_in_memory
+    from pose_splatter_torch.train.loop import make_train_step
+    from pose_splatter_torch.train.trainer import train_from_config
+    from pose_splatter_torch.utils import stages
+    from pose_splatter_torch.utils.synthetic import FrameSet
+
+    config = template_config(
+        "configs/baseline/pigeon_4.json",
+        project_directory=str(ROOT / "build" / "adaptive3d"))
+    assert config.adaptive_camera and config.gaussian_mode == "3d"
+    assert (config.render_width, config.render_height) == (656, 320)
+    assert (config.lr, config.ssim_lambda) == (1e-4, 0.0)
+    assert not config.holdout_views
+    n_train = K_STEPS_3D + K_EXTRA
+    Ks, Es, frames = ring_scene(config, CAMERAS_PIGEON, n_train, seed=1,
+                                offset=PIGEON_OFFSET, axes=PIGEON_AXES)
+    views = list(range(len(Ks)))
+    train = FrameSet(frames, views, seed=2)
+    valid = FrameSet({k: v[:2] for k, v in frames.items()}, views,
+                     split="valid")
+
+    # ---- the main path, with the launch counts zeroed around it ----
+    K.composite_instances.launches = 0
+    K.composite_instances_bwd.launches = 0
+    t0 = time.perf_counter()
+    state, losses, _ = train_from_config(
+        config, epochs=1, max_batches=K_STEPS_3D, batch_size=1, seed=0,
+        device="cuda", cameras=(Ks, Es), datasets=(train, valid))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    train_launches = dict(composite_fwd=K.composite_instances.launches,
+                          composite_bwd=K.composite_instances_bwd.launches)
+    model = state.model
+    adaptive_fn = model.make_adaptive_fn()
+    batches = list(FrameLoader(train, batch_size=1, shuffle=False, prefetch=0,
+                               adaptive_fn=adaptive_fn))[K_STEPS_3D:]
+    step_fn = make_train_step(model, state.optimizer, config.img_lambda,
+                              config.ssim_lambda)
+    step_ms, step_losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        step_losses.append(float(m["total"]))
+    evalset = FrameSet({k: v[:3] for k, v in frames.items()}, views)
+    render_images_in_memory(model, FrameSet(
+        {k: v[:1] for k, v in frames.items()}, views))  # warm-up
+    torch.cuda.synchronize()
+    K.composite_instances.launches = 0
+    t0 = time.perf_counter()
+    rgba = render_images_in_memory(model, evalset)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    eval_launches = K.composite_instances.launches
+    # ---------------------------------------------------------------
+    shifts = []
+    for f in range(3):
+        temp_K, seed = adaptive_fn(frames["mask"][f])
+        d = temp_K[:, :2, 2] - Ks[:, :2, 2]
+        shifts.append(dict(shift_px=d.tolist(), seed=np.asarray(seed).tolist(),
+                           p_3d=frames["p_3d"][f].tolist()))
+    print(f"[adaptive3d] main path: train_from_config {K_STEPS_3D} steps in "
+          f"{t_train:.2f} s (epoch losses {losses[-1]}), launches "
+          f"{train_launches}; steps timed whole "
+          + ", ".join(f"{x:.2f}" for x in step_ms)
+          + " ms (losses " + ", ".join(f"{x:.6f}" for x in step_losses)
+          + f"); render_images_in_memory 3 frames x {len(views)} views in "
+          f"{1e3 * t_render:.1f} ms ({1e3 * t_render / 3:.2f} ms a frame), "
+          f"composite_fwd launches {eval_launches}; {card}", flush=True)
+    for f, s in enumerate(shifts):
+        print(f"[adaptive3d] frame {f}: temp_K principal point - K (px) "
+              + " ".join(f"({x:+.3f}, {y:+.3f})" for x, y in s["shift_px"])
+              + f"; seed {np.round(s['seed'], 5).tolist()}", flush=True)
+    if min(train_launches.values()) < K_STEPS_3D or eval_launches != 3:
+        raise AssertionError(f"[adaptive3d] launches {train_launches}, "
+                             f"{eval_launches}")
+    if not np.isfinite(step_losses).all() or not np.isfinite(losses[-1]).all():
+        raise AssertionError("[adaptive3d] non-finite loss")
+    if rgba.shape != (3, len(views), config.render_height,
+                      config.render_width, 4):
+        raise AssertionError(f"[adaptive3d] rendered {rgba.shape}")
+    if max(abs(x) for s in shifts for row in s["shift_px"] for x in row) <= 0:
+        raise AssertionError("[adaptive3d] temp_K never left K")
+    with stages.record() as rec:
+        step_fn(state, batches[0])
+    kernels = bench_kernels("adaptive3d", rec, None)
+    report["adaptive3d_phase"] = out = dict(
+        train_from_config_s=t_train, epoch_losses=losses,
+        train_launches=train_launches, step_ms=step_ms,
+        step_ms_median=float(np.median(step_ms)), step_losses=step_losses,
+        render_ms=1e3 * t_render, ms_a_frame=1e3 * t_render / 3,
+        eval_launches=eval_launches, temp_K=shifts, kernels=kernels,
+        card=card)
+    return out
+
+
+def remat2d_phase(report, card, later):
+    """(c) ``configs/templates/tpu_2d_highres.json`` as written (1152x1024,
+    grid 256, crop 192x160x128 = 3,932,160 voxels, 6 cameras with holdout
+    views [5, 1], 2D): twin models from the same fresh-start weights, one
+    with ``remat_unets``. Each takes 2 eager train steps with cuDNN held to
+    deterministic algorithms (losses and weights compared: within
+    REMAT_RTOL of each tensor's largest, bit-equality reported), then 2
+    steps with cuDNN's default choices, timed whole, with the peak device
+    memory above the phase's start. Then both compositors against their
+    plain versions on one recorded remat step's arrays (the backward's
+    columns cancel there: ``bench_kernels(cancelling=True)``)."""
+    import gc
+
+    import torch
+
+    from pose_splatter_torch.data.dataset import FrameLoader
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.train.loop import create_train_state, make_train_step
+    from pose_splatter_torch.train.trainer import build_model
+    from pose_splatter_torch.utils import stages
+    from pose_splatter_torch.utils.synthetic import FrameSet
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    config = template_config(
+        "configs/templates/tpu_2d_highres.json",
+        project_directory=str(ROOT / "build" / "remat2d"))
+    assert (config.render_width, config.render_height) == (1152, 1024)
+    assert config.grid_size == 256 and config.gaussian_mode == "2d"
+    t0 = time.perf_counter()
+    Ks, Es, frames = ring_scene(config, VIEWS, 4, seed=1)
+    print(f"[remat2d] 4 synthetic frames x {VIEWS} views at 1152x1024 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    observed = [v for v in range(VIEWS) if v not in config.holdout_views]
+    batches = list(FrameLoader(FrameSet(frames, observed, seed=2),
+                               batch_size=1, shuffle=False, prefetch=0))
+    weights0 = None
+    runs = {}
+    for remat in (False, True):
+        cfg = template_config("configs/templates/tpu_2d_highres.json",
+                              remat_unets=remat)
+        model = build_model(cfg, cameras=(Ks, Es), device="cuda", seed=0)
+        if weights0 is None:
+            fresh_start(model)
+            weights0 = {k: v.cpu() for k, v in model.net.state_dict().items()}
+        else:
+            model.net.load_state_dict(weights0)
+        assert model.net.remat is remat
+        state = create_train_state(model, cfg.lr)
+        step = make_train_step(model, state.optimizer, cfg.img_lambda,
+                               cfg.ssim_lambda)
+        K.composite_instances.launches = 0
+        K.composite_instances_bwd.launches = 0
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            losses = []
+            for b in batches[:2]:
+                state, m = step(state, b)
+                losses.append(float(m["total"]))
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        after2 = {k: v.detach().cpu().clone()
+                  for k, v in model.net.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for b in batches[2:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = dict(composite_fwd=K.composite_instances.launches,
+                        composite_bwd=K.composite_instances_bwd.launches)
+        runs[remat] = dict(losses=losses, weights=after2, step_ms=ms,
+                           peak_gb=peak, launches=launches)
+        print(f"[remat2d] remat_unets={remat}: deterministic steps' losses "
+              + ", ".join(f"{x:.8f}" for x in losses) + "; steps timed whole "
+              + ", ".join(f"{x:.1f}" for x in ms) + f" ms; peak {peak:.3f} GB "
+              f"above the phase's start; launches {launches}; {card}",
+              flush=True)
+        if min(launches.values()) != 4:
+            raise AssertionError(f"[remat2d] launches {launches}")
+        if remat:
+            with stages.record() as rec:
+                step(state, batches[0])
+            kernels = bench_kernels("remat2d", rec, None, cancelling=True)
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    loss_rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
+    w_rel, equal = 0.0, 0
+    for k, x in a["weights"].items():
+        y = b["weights"][k]
+        scale = float(x.abs().max()) or 1.0
+        w_rel = max(w_rel, float((x - y).abs().max()) / scale)
+        equal += int(torch.equal(x, y))
+    bit_equal = a["losses"] == b["losses"] and equal == len(a["weights"])
+    print(f"[remat2d] after 2 steps: losses within {loss_rel:.3g} relative, "
+          f"weights within {w_rel:.3g} of each tensor's largest "
+          f"(tol {REMAT_RTOL}); {equal} of {len(a['weights'])} tensors "
+          f"bit-equal; bit-equal: {bit_equal}", flush=True)
+    if not (loss_rel <= REMAT_RTOL and w_rel <= REMAT_RTOL):
+        raise AssertionError("[remat2d] remat and no remat disagree")
+    for r in runs.values():
+        del r["weights"]
+    report["remat2d_phase"] = out = dict(
+        voxels=192 * 160 * 128,
+        runs={("remat" if k else "plain"): v for k, v in runs.items()},
+        loss_rel=loss_rel, weight_rel=w_rel, tensors_bit_equal=equal,
+        bit_equal=bit_equal, kernels=kernels, card=card)
+    return out
+
+
+def bridge_phase(report, trained):
+    """(d) The 2D train phase's state (its model and capturable Adam, as
+    every later phase left them) through the inverse bridge and the Adam
+    converter to the JAX payload tree and back: bit-equal, and the tree
+    again equal. Then a twin loads the converted checkpoint file and takes
+    one step beside the original, cuDNN held to deterministic algorithms:
+    the losses and every weight and Adam tensor equal bit for bit."""
+    import torch
+
+    from pose_splatter_torch.data.dataset import FrameLoader
+    from pose_splatter_torch.train import checkpoint_convert as cc
+    from pose_splatter_torch.train.loop import (
+        checkpoint_payload,
+        create_train_state,
+        load_checkpoint,
+        make_train_step,
+    )
+    from pose_splatter_torch.train.trainer import build_model
+    from pose_splatter_torch.utils.synthetic import FrameSet
+
+    state, frames = trained["state"], trained["frames"]
+    cfg = north_star_config()
+    payload = checkpoint_payload(state)
+    t0 = time.perf_counter()
+    tree = cc.to_jax_tree(payload)
+    back = cc.from_jax_tree(tree, state)
+    convert_s = time.perf_counter() - t0
+
+    def opt_equal(x, y):
+        if sorted(x["state"]) != sorted(y["state"]):
+            return False
+        return all(torch.equal(x["state"][i][k].cpu(), y["state"][i][k].cpu())
+                   for i in x["state"] for k in ("step", "exp_avg",
+                                                 "exp_avg_sq"))
+
+    n_leaves = sum(1 for _ in _leaves(tree["params"]))
+    same = (all(torch.equal(payload["params"][k], back["params"][k])
+                for k in payload["params"])
+            and all(torch.equal(payload["batch_stats"][k], back["batch_stats"][k])
+                    for k in payload["batch_stats"])
+            and opt_equal(payload["opt_state"], back["opt_state"])
+            and back["step"] == payload["step"])
+    again = cc.to_jax_tree(back)
+    tree_same = all(np.array_equal(x, y) for x, y in
+                    zip(_leaves(tree), _leaves(again)))
+    with_state = len(payload["opt_state"]["state"])
+    print(f"[bridge] the train phase's state -> JAX tree ({n_leaves} "
+          f"parameter leaves, Adam count {int(tree['opt_state'][0].count)}, "
+          f"{with_state} of {len(payload['params'])} parameters with torch "
+          f"state) -> port payload in {convert_s:.2f} s: bit-equal {same}; "
+          f"tree again equal {tree_same}", flush=True)
+    if not (same and tree_same):
+        raise AssertionError("[bridge] the round trip is not bit-equal")
+
+    path = str(ROOT / "build" / "bridge" / "converted.ckpt")
+    twin = build_model(cfg, cameras=trained["cameras"], device="cuda", seed=3)
+    twin_state = create_train_state(twin, cfg.lr)
+    cc.save_jax_tree(path, tree, twin_state, extra={"epoch": 1})
+    twin_state, extra = load_checkpoint(path, twin_state)
+    batch = next(iter(FrameLoader(FrameSet(frames, trained["observed"], seed=5),
+                                  batch_size=1, shuffle=False, prefetch=0)))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        steps = []
+        for s in (state, twin_state):
+            fn = make_train_step(s.model, s.optimizer, cfg.img_lambda,
+                                 cfg.ssim_lambda)
+            s, m = fn(s, batch)
+            steps.append((s, float(m["total"])))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (s0, l0), (s1, l1) = steps
+    p0, p1 = checkpoint_payload(s0), checkpoint_payload(s1)
+    w_equal = all(torch.equal(p0["params"][k], p1["params"][k])
+                  for k in p0["params"]) and all(
+        torch.equal(p0["batch_stats"][k], p1["batch_stats"][k])
+        for k in p0["batch_stats"])
+    a_equal = opt_equal(p0["opt_state"], p1["opt_state"])
+    print(f"[bridge] one step from the original and from the converted "
+          f"checkpoint: losses {l0:.8f} / {l1:.8f}, weights equal {w_equal}, "
+          f"Adam state equal {a_equal}, extra {extra}", flush=True)
+    if not (l0 == l1 and w_equal and a_equal and extra == {"epoch": 1}):
+        raise AssertionError("[bridge] the resumed step differs")
+    report["bridge_phase"] = out = dict(
+        round_trip_bit_equal=same, tree_equal=tree_same,
+        params_with_torch_state=with_state, adam_count=int(
+            tree["opt_state"][0].count), convert_s=convert_s,
+        resumed_losses=[l0, l1], resumed_bit_equal=True)
+    return out
+
+
+def _leaves(tree):
+    """The numpy leaves of a nested dict / tuple tree, in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, tuple):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield np.asarray(tree)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gather-only", action="store_true",
@@ -1793,6 +2343,10 @@ def main(argv=None) -> int:
         run("bench", bench_phase, card, later)
         run("tiled", tiled_phase, card)
         run("synth", synth_phase)
+        run("carve_cap", carve_cap_phase, later)
+        run("adaptive3d", adaptive3d_phase, card, later)
+        run("remat2d", remat2d_phase, card, later)
+        run("bridge", bridge_phase, res["train2d"][2])
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -1812,6 +2366,7 @@ def main(argv=None) -> int:
     (e3_launches, e3), (t3_launches, t3, _) = res["eval3d"], res["train3d"]
     m2, m3 = res["multistep2d"], res["multistep3d"]
     bench_lines = res["bench"]
+    cap, ad3, rm2 = res["carve_cap"], res["adaptive3d"], res["remat2d"]
 
     def bench_launches(kernel):
         return {f"launches_bench_{m}": bench_lines[f"{m}_kernel"]["launches"][
@@ -1821,11 +2376,23 @@ def main(argv=None) -> int:
         sk["max_abs_err"], tk["fwd_max_abs_err"], e3["max_abs_err"],
         t3["fwd_max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["fwd_max_abs_err"]
-        for m in ("3d", "2d")]
+        for m in ("3d", "2d")] + [
+        ad3["kernels"]["fwd_max_abs_err"], rm2["kernels"]["fwd_max_abs_err"]]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
         tk["max_abs_err"], t3["max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["bwd_max_abs_err"]
-        for m in ("3d", "2d")]
+        for m in ("3d", "2d")] + [
+        ad3["kernels"]["bwd_max_abs_err"], rm2["kernels"]["bwd_max_abs_err"]]
+
+    def new_path_launches(kernel):
+        out = dict(
+            launches_carve_cap_multistep=cap["multistep_launches"][kernel],
+            launches_adaptive_3d_train=ad3["train_launches"][kernel],
+            launches_remat_2d=rm2["runs"]["remat"]["launches"][kernel])
+        if kernel == "composite_fwd":
+            out.update(launches_carve_cap_eval=cap["eval_launches"],
+                       launches_adaptive_3d_eval=ad3["eval_launches"])
+        return out
 
     kernels = {"kernels": [
         dict(name="composite_fwd", route="cuda",
@@ -1838,6 +2405,7 @@ def main(argv=None) -> int:
              **bench_launches("composite_fwd"),
              launches_multistep_2d=m2["launches"]["composite_fwd"],
              launches_multistep_3d=m3["launches"]["composite_fwd"],
+             **new_path_launches("composite_fwd"),
              max_abs_err=max(fwd_errs),
              ms=sk["ms"], plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
              bound_by=sk["bound_by"], library_ms=None,
@@ -1855,6 +2423,7 @@ def main(argv=None) -> int:
              **bench_launches("composite_bwd"),
              launches_multistep_2d=m2["launches"]["composite_bwd"],
              launches_multistep_3d=m3["launches"]["composite_bwd"],
+             **new_path_launches("composite_bwd"),
              max_abs_err=max(bwd_errs), ms=tk["ms"], plain_ms=tk["plain_ms"],
              bound_ms=tk["bound_ms"], bound_by=tk["bound_by"],
              library_ms=None, ms_3d_train=t3["ms"],

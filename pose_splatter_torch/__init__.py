@@ -8,7 +8,9 @@ Covered so far: the 2D (view-anchored) and 3D models in eval and train
 (carve → residual U-Nets → Gaussian selection + MLP head → projection →
 binning → the hand-written CUDA compositors, or the ``"tiled"`` and
 ``"global"`` compositors in plain PyTorch → losses, Adam, K steps a call),
-the renderer facade, and the counterparts of ``bench.py``
+the renderer facade, the carve's visibility cap, the adaptive camera,
+``remat_unets``, checkpoints that cross to and from the JAX package
+(``train/checkpoint_convert.py``), and the counterparts of ``bench.py``
 (``scripts/bench.py``), ``__graft_entry__.py::entry`` (``graft_entry.py``)
 and ``scripts/synthetic_benchmark.py``.
 

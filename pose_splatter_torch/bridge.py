@@ -1,10 +1,12 @@
-"""Flax → PyTorch weight bridge for ``PoseSplatterNet``.
+"""Flax ↔ PyTorch weight bridge for ``PoseSplatterNet``.
 
 ``variables_from_flax`` takes the JAX package's ``{'params',
 'batch_stats'}`` tree with numpy leaves (e.g. ``jax.tree.map(np.asarray,
 variables)``) and returns a state dict for
-:class:`pose_splatter_torch.models.pose_splatter.PoseSplatterNet`. It
-imports neither jax nor flax.
+:class:`pose_splatter_torch.models.pose_splatter.PoseSplatterNet`;
+``variables_to_flax`` is its exact inverse (every leaf bit for bit, both
+ways). Neither imports jax or flax. ``nn.remat`` keeps the Flax module
+names, so one bridge serves models with and without ``remat_unets``.
 
 - Conv kernels ``[kd,kh,kw,in,out]`` → ``[out,in,kd,kh,kw]``.
 - ``nn.ConvTranspose`` (no ``transpose_kernel``) convolves the dilated
@@ -88,3 +90,59 @@ def variables_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         else:
             raise KeyError(f"unexpected parameter group {name!r}")
     return sd
+
+
+# ----------------------------------------------------------------------------
+# The inverse: torch state dict → Flax numpy tree.
+# ----------------------------------------------------------------------------
+
+def _n(x) -> np.ndarray:
+    return np.ascontiguousarray(torch.as_tensor(x).detach().cpu().numpy())
+
+
+def _set(tree: Dict, path, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def variables_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
+    """Torch ``PoseSplatterNet`` state dict → Flax ``{'params',
+    'batch_stats'}`` with numpy float32 leaves: the exact inverse of
+    :func:`variables_from_flax`.
+
+    Conv weights ``[out,in,kd,kh,kw]`` → ``[kd,kh,kw,in,out]``; transpose-
+    conv weights ``[in,out,kd,kh,kw]`` → ``[kd,kh,kw,in,out]`` flipped back
+    in space; dense weights transposed; BatchNorm weight / bias / running
+    mean / running variance → scale / bias / mean / var. A state dict that
+    holds only some entries (Adam's moments of the parameters, say) gives
+    the tree of those entries.
+    """
+    params: Dict = {}
+    stats: Dict = {}
+    for name, value in state_dict.items():
+        parts = name.split(".")
+        if parts[0] == "unets":
+            parts = [f"unet_{parts[1]}"] + parts[2:]
+        *path, leaf = parts
+        x = _n(value)
+        if leaf in ("running_mean", "running_var"):
+            _set(stats, path + [{"running_mean": "mean",
+                                 "running_var": "var"}[leaf]], x)
+        elif len(path) >= 2 and path[-1].startswith("bn"):
+            _set(params, path + [{"weight": "scale", "bias": "bias"}[leaf]], x)
+        elif leaf == "bias":
+            _set(params, path + ["bias"], x)
+        elif name == "scale":
+            params["scale"] = x
+        elif x.ndim == 5 and path[-1].startswith("upconv"):
+            k = np.transpose(x, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1]
+            _set(params, path + ["kernel"], np.ascontiguousarray(k))
+        elif x.ndim == 5:
+            _set(params, path + ["kernel"],
+                 np.ascontiguousarray(np.transpose(x, (2, 3, 4, 1, 0))))
+        elif x.ndim == 2:
+            _set(params, path + ["kernel"], np.ascontiguousarray(x.T))
+        else:
+            raise KeyError(f"unexpected state-dict entry {name!r}")
+    return {"params": params, "batch_stats": stats}

@@ -15,8 +15,7 @@ package).
 - Only observed (non-holdout) views are returned, channel-last.
 
 Not ported: the native C++ decode (``decode_frame`` runs the NumPy path,
-which gives the same values) and the adaptive-camera hook of the loader
-(``adaptive_camera`` is not ported).
+which gives the same values).
 """
 
 from __future__ import annotations
@@ -121,7 +120,8 @@ class FrameLoader:
 
     Yields batch dicts matching ``make_train_step``:
         mask [B,C',H,W], img [B,C',H,W,3], p_3d [B,3], angle [B],
-        view_idx [B] int32, obs_idx [B] int32.
+        view_idx [B] int32, obs_idx [B] int32, and with ``adaptive_fn``
+        K_mask [B,C',3,3] and seed_3d [B,3] (float32).
 
     ``dataset`` is a :class:`FrameDataset` or anything with its ``get``,
     ``__len__``, ``observed_views``, ``split`` and ``_rng``. ``workers``
@@ -131,12 +131,19 @@ class FrameLoader:
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
                  seed: int = 0, prefetch: int = 2, drop_last: bool = True,
-                 workers: int = 4):
+                 adaptive_fn=None, workers: int = 4):
+        """``adaptive_fn(mask [C',H,W]) -> (temp_K [C',3,3], seed [3])`` is
+        the adaptive camera's host hook (``PoseSplatter.make_adaptive_fn``),
+        run here on each frame's numpy mask in the loader's threads: the
+        batch gains ``K_mask`` (the frame's intrinsics for the observed
+        views) and ``seed_3d`` (where the carve grid sits). ``p_3d`` stays
+        the dataset's center, which the pose transform uses."""
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.adaptive_fn = adaptive_fn
         self.workers = max(1, workers)
         self._rng = np.random.default_rng(seed)
         obs = list(dataset.observed_views)
@@ -150,16 +157,21 @@ class FrameLoader:
                     view_choices: Optional[np.ndarray] = None
                     ) -> Dict[str, np.ndarray]:
         masks, imgs, p3ds, angles, views, obs = [], [], [], [], [], []
+        k_masks, seeds = [], []
         for j, i in enumerate(idxs):
             v_pre = None if view_choices is None else int(view_choices[j])
             m, im, p, a, v = self.ds.get(int(i), view_idx=v_pre)
+            if self.adaptive_fn is not None:
+                temp_K, seed = self.adaptive_fn(m)
+                k_masks.append(np.asarray(temp_K, np.float32))
+                seeds.append(np.asarray(seed, np.float32))
             masks.append(m)
             imgs.append(im)
             p3ds.append(p)
             angles.append(a)
             views.append(v)
             obs.append(self._obs_pos[v])
-        return dict(
+        batch = dict(
             mask=np.stack(masks),
             img=np.stack(imgs),
             p_3d=np.stack(p3ds),
@@ -167,6 +179,10 @@ class FrameLoader:
             view_idx=np.array(views, np.int32),
             obs_idx=np.array(obs, np.int32),
         )
+        if k_masks:
+            batch["K_mask"] = np.stack(k_masks)
+            batch["seed_3d"] = np.stack(seeds)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         n = len(self.ds)

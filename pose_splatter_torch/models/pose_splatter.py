@@ -8,6 +8,14 @@ and train mode:
         and conic compositing (``ops/rasterize.py::rasterize``);
     2D: (view-anchored) projection → ellipse compositing
         (``rasterize_2d``).
+
+With ``adaptive_camera`` each frame brings its own intrinsics for the
+observed views (``temp_K``) and a triangulated seed from a host hook
+(:meth:`PoseSplatter.make_adaptive_fn`): the mask is carved through
+``temp_K`` around the seed, and the render uses ``temp_K`` too.
+``carve_visibility_cap`` sizes the carve's compacted visibility sort;
+``remat_unets`` recomputes each U-Net's activations in the backward
+(``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -19,11 +27,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pose_splatter_torch.models.unet3d import NewStats, Unet3D, flax_init_
 from pose_splatter_torch.ops.carving import carve_volume
 from pose_splatter_torch.ops.rasterize import rasterize, rasterize_2d
 from pose_splatter_torch.utils import stages
+from pose_splatter_torch.utils.cameras import adjust_principal_points_to_seed
 from pose_splatter_torch.utils.device import resolve_device
 from pose_splatter_torch.utils.geometry import (
     create_3d_grid,
@@ -226,16 +236,23 @@ def take_rows_unique(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class PoseSplatterNet(nn.Module):
     """Trainable parameters: U-Net stack, Gaussian MLP head, scale offset.
-    Module names follow the Flax module so the weight bridge is a rename."""
+    Module names follow the Flax module so the weight bridge is a rename.
+
+    ``remat`` runs each U-Net under ``torch.utils.checkpoint`` (Flax's
+    ``nn.remat``, ``pose_splatter.py:108-168``): only its input is kept for
+    the backward, which runs its forward again. The parameters and their
+    names do not change, so one bridge and one checkpoint serve both."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 8,
                  base_filters: int = 8, num_unets: int = 3,
                  input_size: Sequence[int] = (64, 64, 64),
-                 num_gaussian_params: int = 14, ablation: bool = False):
+                 num_gaussian_params: int = 14, ablation: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.ablation = ablation
+        self.remat = remat
         if not ablation:
             self.unets = nn.ModuleList([
                 Unet3D(in_channels, in_channels, base_filters,
@@ -267,8 +284,8 @@ class PoseSplatterNet(nn.Module):
         collect: Optional[NewStats] = None if new_stats is None else {}
         v = volume.permute(0, 4, 1, 2, 3)  # NCDHW
         for unet in self.unets:
-            v = v + unet(v, collect)
-        v = self.final_unet(v, collect)
+            v = v + self._unet(unet, v, collect)
+        v = self._unet(self.final_unet, v, collect)
         if collect:
             for name, mod in self.named_modules():
                 if mod in collect:
@@ -276,6 +293,26 @@ class PoseSplatterNet(nn.Module):
                     new_stats[f"{name}.running_mean"] = mean
                     new_stats[f"{name}.running_var"] = var
         return v[0].reshape(self.out_channels, -1)
+
+    def _unet(self, unet: Unet3D, v: torch.Tensor,
+              collect: Optional[NewStats]) -> torch.Tensor:
+        """One U-Net, under ``checkpoint`` when ``remat`` and a graph is
+        being built. The backward's second forward normalises with the same
+        batch statistics but writes its running statistics into a dict that
+        is dropped: they are taken once, from the first forward. Nothing
+        here draws random numbers, so no RNG state is saved (which a CUDA
+        graph capture would refuse)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return unet(v, collect)
+        first = [True]
+
+        def run(x):
+            stats = collect if first[0] or collect is None else {}
+            first[0] = False
+            return unet(x, stats)
+
+        return checkpoint(run, v, use_reentrant=False,
+                          preserve_rng_state=False)
 
     def gaussian_head(self, feats: torch.Tensor) -> torch.Tensor:
         """feats [n, out_ch] → [n, P]."""
@@ -325,12 +362,15 @@ class PoseSplatter(nn.Module):
         ablation: bool = False,
         volume_fill_color: float = 0.45,
         holdout_views: Sequence[int] = (),
+        adaptive_camera: bool = False,
         gaussian_mode: str = "2d",
         gaussian_config: Optional[Dict[str, Any]] = None,
         background_color: Sequence[float] = (1.0, 1.0, 1.0),
         render_mode: str = "kernel",
         tile_shape: Optional[Tuple[int, int]] = None,
         tile_capacity: Optional[int] = None,
+        carve_visibility_cap: Optional[int] = None,
+        remat_unets: bool = False,
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ):
@@ -351,11 +391,14 @@ class PoseSplatter(nn.Module):
         self.mask_threshold_delta = mask_threshold_delta
         self.volume_fill_color = float(volume_fill_color)
         self.holdout_views = list(holdout_views)
+        self.adaptive_camera = adaptive_camera
         self.gaussian_mode = gaussian_mode
         self.gaussian_config = dict(gaussian_config or {})
         self.render_mode = render_mode
         self.tile_shape = tile_shape
         self.tile_capacity = tile_capacity
+        # Static cap of the carve's visibility compaction; None = exact.
+        self.carve_visibility_cap = carve_visibility_cap
 
         C = len(intrinsics)
         self.num_cameras = C
@@ -367,6 +410,8 @@ class PoseSplatter(nn.Module):
         self.register_buffer("viewmats", Es, persistent=False)
         self.register_buffer("Ks_obs", Ks[obs], persistent=False)
         self.register_buffer("viewmats_obs", Es[obs], persistent=False)
+        self.register_buffer("obs_index", torch.as_tensor(obs, dtype=torch.long),
+                             persistent=False)
         self.register_buffer("background_color", torch.tensor(
             background_color, dtype=torch.float32), persistent=False)
         # Set when a device-route selection left its threshold table;
@@ -397,7 +442,7 @@ class PoseSplatter(nn.Module):
                 base_filters=base_filters, num_unets=num_unets,
                 input_size=self.input_size,
                 num_gaussian_params=self.num_gaussian_params,
-                ablation=ablation)
+                ablation=ablation, remat=remat_unets)
         self.to(dev)
         self.eval()
 
@@ -422,13 +467,34 @@ class PoseSplatter(nn.Module):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
-    def carve(self, mask, img, p_3d, angle) -> torch.Tensor:
+    def make_adaptive_fn(self):
+        """Host hook of the adaptive camera (``pose_splatter.py:324-343``):
+        ``adaptive_fn(mask [C',H,W] numpy) -> (temp_K [C',3,3], seed [3])``,
+        the observed views' principal points re-centred on the mask
+        medoids' triangulated seed (``adjust_principal_points_to_seed``, in
+        numpy). Call it on the loader's numpy masks, before anything goes
+        to the device; every forward of an adaptive model (train, eval,
+        render) takes its frame's ``temp_K`` and seed."""
+        Ks_obs = self.Ks_obs.cpu().numpy()
+        Es_obs = self.viewmats_obs.cpu().numpy()
+
+        def adaptive_fn(mask):
+            return adjust_principal_points_to_seed(np.asarray(mask), Ks_obs,
+                                                   Es_obs)
+
+        return adaptive_fn
+
+    # ------------------------------------------------------------------
+    def carve(self, mask, img, p_3d, angle, K_mask=None) -> torch.Tensor:
         """Shape-carve one frame. mask [C',H,W]; img [C',H,W,3] (observed
-        views only) → volume [4, n1, n2, n3]."""
+        views only) → volume [4, n1, n2, n3]. ``K_mask`` [C',3,3] replaces
+        the intrinsics of the mask's projection (the adaptive ``temp_K``)."""
         return carve_volume(
             self._tensor(mask), self._tensor(img), self._tensor(p_3d),
-            self._tensor(angle), self.grid, self.Ks_obs, self.viewmats_obs,
-            volume_fill_color=self.volume_fill_color)
+            self._tensor(angle), self.grid,
+            None if K_mask is None else self._tensor(K_mask), self.Ks_obs,
+            self.viewmats_obs, volume_fill_color=self.volume_fill_color,
+            visibility_cap=self.carve_visibility_cap)
 
     # ------------------------------------------------------------------
     def gaussians_from_volume(self, vol_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -486,23 +552,26 @@ class PoseSplatter(nn.Module):
         return g
 
     # ------------------------------------------------------------------
-    def render(self, g: Dict[str, torch.Tensor], view_idx):
-        """Render to the cameras in ``view_idx`` (int or [B] ints).
+    def render(self, g: Dict[str, torch.Tensor], view_idx, K_override=None):
+        """Render to the cameras in ``view_idx`` (int or [B] ints), with
+        ``K_override`` [C,3,3] in place of the cameras' intrinsics where
+        given (3D and anchored 2D; ``pose_splatter.py:448-527``).
         Returns rgb [B,H,W,3], alpha [B,H,W], overflow [] (instances
         dropped by finite binning capacity)."""
         view_idx = torch.as_tensor(view_idx, device=self.device).reshape(-1).long()
+        Ks = self.Ks if K_override is None else K_override
         if self.gaussian_mode == "3d":
             return rasterize(
                 g["means"], g["quats"], torch.exp(g["log_scales"]),
                 torch.sigmoid(g["logit_opacities"]), g["colors"],
-                self.viewmats[view_idx], self.Ks[view_idx], self.W, self.H,
+                self.viewmats[view_idx], Ks[view_idx], self.W, self.H,
                 valid=g["valid"], backgrounds=self.background_color,
                 tile_shape=self.tile_shape, tile_capacity=self.tile_capacity,
                 tile_expand=self.tile_expand, mode=self.render_mode,
                 return_overflow=True)
         B = view_idx.shape[0]
         if "anchor_means" in g:
-            pix = project_points(g["anchor_means"], self.Ks[view_idx],
+            pix = project_points(g["anchor_means"], Ks[view_idx],
                                  self.viewmats[view_idx], clamp_z=True)
             means = pix + g["means2d"][None]  # [B,N,2]
         else:
@@ -521,11 +590,16 @@ class PoseSplatter(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, mask, img, p_3d, angle, view_idx, train: bool = False,
-                return_overflow: bool = False):
+                return_overflow: bool = False, K_mask=None, carve_center=None):
         """Forward for one frame (``pose_splatter.py:529-595``).
 
         mask [C',H,W]; img [C',H,W,3] (observed views, channel-last);
         p_3d [3]; angle scalar; view_idx int or [B] ints.
+        ``K_mask`` [C',3,3] and ``carve_center`` [3]: an adaptive model's
+        ``temp_K`` and seed for this frame (:meth:`make_adaptive_fn`). The
+        carve grid sits at ``carve_center``; the pose transform keeps
+        ``p_3d``; ``temp_K`` drives the mask's projection and the render of
+        the observed views (the holdout views keep their intrinsics).
 
         Eval (the default): no graph, BN on the running statistics; returns
         rgb [B,H,W,3], alpha [B,H,W] (+ overflow [] if requested).
@@ -540,10 +614,11 @@ class PoseSplatter(nn.Module):
         train step checks it once a step, or a call of K steps.
         """
         if train:
-            return self._forward(mask, img, p_3d, angle, view_idx, {})
+            return self._forward(mask, img, p_3d, angle, view_idx, {},
+                                 K_mask, carve_center)
         with torch.no_grad():
-            rgb, alpha, _, overflow = self._forward(mask, img, p_3d, angle,
-                                                    view_idx, None)
+            rgb, alpha, _, overflow = self._forward(
+                mask, img, p_3d, angle, view_idx, None, K_mask, carve_center)
         if not (self.device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
             self.check_selection()
@@ -551,8 +626,10 @@ class PoseSplatter(nn.Module):
             return rgb, alpha, overflow
         return rgb, alpha
 
-    def _forward(self, mask, img, p_3d, angle, view_idx, new_stats):
-        volume = self.carve(mask, img, p_3d, angle)  # [4,n1,n2,n3]
+    def _forward(self, mask, img, p_3d, angle, view_idx, new_stats,
+                 K_mask=None, carve_center=None):
+        center = p_3d if carve_center is None else carve_center
+        volume = self.carve(mask, img, center, angle, K_mask)  # [4,n1,n2,n3]
         stages.mark("carve")
         vol_flat = self.net.process_volume(volume.permute(1, 2, 3, 0)[None],
                                            new_stats)
@@ -565,7 +642,12 @@ class PoseSplatter(nn.Module):
             rot = yaw_rotation(self._tensor(angle))
             g["anchor_means"] = g["anchor_means"] @ rot.T + self._tensor(p_3d)
         stages.mark("select_head", g)
-        rgb, alpha, overflow = self.render(g, view_idx)
+        # The observed views' temp_K in a copy of the camera set: the
+        # model's own intrinsics stay as they are for later frames and for
+        # the holdout views.
+        K_override = None if K_mask is None else self.Ks.index_copy(
+            0, self.obs_index, self._tensor(K_mask))
+        rgb, alpha, overflow = self.render(g, view_idx, K_override)
         return rgb, alpha, new_stats, overflow
 
     # ------------------------------------------------------------------

@@ -115,13 +115,7 @@ def build_model(C, H, W, grid, mode, crop=None, holdout=None,
                 ell=0.35, remat_unets=False, device="cuda"):
     """The benchmark PoseSplatter config, rendering with the hand-written
     compositors (``render_mode="kernel"``; their plain versions on the
-    CPU). ``carve_cap`` and ``remat_unets`` are not ported yet and raise."""
-    if carve_cap is not None:
-        raise NotImplementedError("--carve-cap (carve_visibility_cap) is not "
-                                  "ported yet (ROADMAP.md A.4)")
-    if remat_unets:
-        raise NotImplementedError("--remat-unets is not ported yet "
-                                  "(ROADMAP.md A.6)")
+    CPU)."""
     if crop:
         v = [int(x) for x in crop.split(",")]
         volume_idx = [[v[0], v[1]], [v[2], v[3]], [v[4], v[5]]]
@@ -136,6 +130,8 @@ def build_model(C, H, W, grid, mode, crop=None, holdout=None,
         gaussian_config={"view_anchored": True} if anchored else None,
         render_mode="kernel",
         min_n=min_n, max_n=max_n,
+        carve_visibility_cap=carve_cap,
+        remat_unets=remat_unets,
         device=device,
     )
 
@@ -216,10 +212,12 @@ def main(argv=None):
                         "view-independent and cannot do multi-view training "
                         "— docs/DESIGN.md §5)")
     parser.add_argument("--remat-unets", action="store_true",
-                        help="recompute the U-Net stack in the backward; not "
-                        "ported yet (raises)")
+                        help="recompute each U-Net's activations in the "
+                        "backward (torch.utils.checkpoint)")
     parser.add_argument("--carve-cap", type=int, default=None,
-                        help="carve_visibility_cap; not ported yet (raises)")
+                        help="carve_visibility_cap (ops/carving.py): static "
+                        "occupied-set compaction for the visibility sort; "
+                        "overflow counted")
     parser.add_argument("--per-camera", action="store_true",
                         help="also evaluate ALL C views per frame (observed "
                         "included) with per-camera l1/iou/soft_iou/psnr/ssim "
@@ -244,7 +242,6 @@ def main(argv=None):
     holdout = C - 1
     radii = tuple(float(x) for x in args.radii.split(","))
     g = args.grid
-    # Flags that are not ported raise before the scene is drawn.
     model = build_model(C, H, W, g, args.mode, crop=args.crop,
                         holdout=holdout, anchored=args.anchored,
                         min_n=args.min_n, max_n=args.max_n,

@@ -18,11 +18,19 @@ from pose_splatter_torch.ops.ssim import ssim as ssim_fn
 
 
 def _rendered_frames(model, dataset) -> Iterator[np.ndarray]:
-    """Yield each frame's uint8 RGBA renders [C,H,W,4] over all C views."""
+    """Yield each frame's uint8 RGBA renders [C,H,W,4] over all C views.
+    An adaptive model takes each frame's ``temp_K`` and seed from its host
+    hook, as its training forward did (``evaluate.py:50-90``)."""
     view_idx = torch.arange(model.num_cameras, device=model.device)
+    adaptive_fn = model.make_adaptive_fn() if model.adaptive_camera else None
     for i in range(len(dataset)):
         mask, img, p_3d, angle, _ = dataset.get(i, view_idx=0)
-        rgb, alpha = model(mask, img, p_3d, angle, view_idx)
+        kw = {}
+        if adaptive_fn is not None:
+            temp_K, seed = adaptive_fn(mask)
+            kw = dict(K_mask=np.asarray(temp_K, np.float32),
+                      carve_center=np.asarray(seed, np.float32))
+        rgb, alpha = model(mask, img, p_3d, angle, view_idx, **kw)
         rgba = torch.clamp(torch.cat([rgb, alpha[..., None]], -1), 0.0, 1.0)
         yield (255 * rgba.cpu().numpy()).astype(np.uint8)
 

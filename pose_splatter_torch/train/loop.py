@@ -9,8 +9,9 @@ the metrics and the new running statistics are averaged over the frames.
 
 Checkpoints hold the JAX package's payload keys {step, params,
 batch_stats, opt_state} and a ``.meta.json`` beside them, written with
-``torch.save``. They are not Orbax checkpoints: the two packages cannot
-load each other's files.
+``torch.save``. They are not Orbax checkpoints; ``train/checkpoint_convert.py``
+converts them to and from the JAX package's payload as a numpy tree, which
+that package's own ``save_checkpoint`` / ``load_checkpoint`` write and read.
 """
 
 from __future__ import annotations
@@ -62,17 +63,21 @@ def _forward_loss(model, frame: Dict, img_lambda: float, ssim_lambda: float,
     """Forward + loss for one frame (``loop.py:48-73``): renders
     ``frame["view_idx"]`` and compares it with observed view
     ``frame["obs_idx"]``, selected by an index on the frame's device (no
-    read-back). The count of Gaussian×tile instances dropped by finite
-    binning capacity rides along in the metrics (zero in healthy runs).
-    Returns the loss, the metrics and, in train mode, the new running
-    statistics."""
+    read-back). An adaptive frame's ``K_mask`` and ``seed_3d`` (the
+    loader's host hook) go to the forward as ``K_mask`` and
+    ``carve_center``. The count of Gaussian×tile instances dropped by
+    finite binning capacity rides along in the metrics (zero in healthy
+    runs). Returns the loss, the metrics and, in train mode, the new
+    running statistics."""
     mask = model._tensor(frame["mask"])
     img = model._tensor(frame["img"])
     args = (mask, img, frame["p_3d"], frame["angle"], frame["view_idx"])
+    adaptive = dict(K_mask=frame.get("K_mask"),
+                    carve_center=frame.get("seed_3d"))
     if train:
-        rgb, alpha, new_stats, overflow = model(*args, train=True)
+        rgb, alpha, new_stats, overflow = model(*args, train=True, **adaptive)
     else:
-        rgb, alpha, overflow = model(*args, return_overflow=True)
+        rgb, alpha, overflow = model(*args, return_overflow=True, **adaptive)
         new_stats = None
     obs = torch.as_tensor(frame["obs_idx"], device=mask.device).reshape(1).long()
     loss, metrics = total_loss(rgb[0], alpha[0], img.index_select(0, obs)[0],
@@ -300,19 +305,26 @@ def make_eval_step(model, img_lambda: float, ssim_lambda: float
 
 
 # ----------------------------------------------------------------------------
-# Checkpoints (torch.save; not cross-loadable with the JAX package's Orbax).
+# Checkpoints (torch.save; see train/checkpoint_convert.py for the JAX payload).
 # ----------------------------------------------------------------------------
 
-def save_checkpoint(path: str, state: TrainState, extra: Optional[Dict] = None):
-    """Save {step, params, batch_stats, opt_state} to ``path`` and any
-    JSON-serialisable ``extra`` (loss history etc.) to ``path.meta.json``."""
+def checkpoint_payload(state: TrainState) -> Dict:
+    """The checkpoint payload of ``state``: {step, params, batch_stats,
+    opt_state}, the net's parameters and buffers on the CPU in their
+    ``named_parameters`` / ``named_buffers`` order (the optimizer's
+    parameter indices follow the same order) and Adam's ``state_dict``."""
     net = state.model.net
-    payload = {
+    return {
         "step": state.step,
         "params": {k: v.detach().cpu() for k, v in net.named_parameters()},
         "batch_stats": {k: v.detach().cpu() for k, v in net.named_buffers()},
         "opt_state": state.optimizer.state_dict(),
     }
+
+
+def write_checkpoint(path: str, payload: Dict, extra: Optional[Dict] = None):
+    """``torch.save`` a payload to ``path`` and any JSON-serialisable
+    ``extra`` (loss history etc.) to ``path.meta.json``."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(payload, path)
@@ -321,16 +333,28 @@ def save_checkpoint(path: str, state: TrainState, extra: Optional[Dict] = None):
             json.dump(extra, f)
 
 
-def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict]:
-    """Restore a checkpoint into ``state``'s model and optimizer (in place)
-    and return the state with the saved step, and the ``extra`` dict."""
+def read_checkpoint(path: str) -> Tuple[Dict, Dict]:
+    """The payload at ``path`` (on the CPU) and its ``extra`` dict."""
     path = os.path.abspath(path)
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.net.load_state_dict({**payload["params"],
-                                     **payload["batch_stats"]})
-    state.optimizer.load_state_dict(payload["opt_state"])
     extra = {}
     if os.path.exists(path + ".meta.json"):
         with open(path + ".meta.json") as f:
             extra = json.load(f)
+    return payload, extra
+
+
+def save_checkpoint(path: str, state: TrainState, extra: Optional[Dict] = None):
+    """Save {step, params, batch_stats, opt_state} to ``path`` and any
+    JSON-serialisable ``extra`` (loss history etc.) to ``path.meta.json``."""
+    write_checkpoint(path, checkpoint_payload(state), extra)
+
+
+def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict]:
+    """Restore a checkpoint into ``state``'s model and optimizer (in place)
+    and return the state with the saved step, and the ``extra`` dict."""
+    payload, extra = read_checkpoint(path)
+    state.model.net.load_state_dict({**payload["params"],
+                                     **payload["batch_stats"]})
+    state.optimizer.load_state_dict(payload["opt_state"])
     return state._replace(step=int(payload["step"])), extra

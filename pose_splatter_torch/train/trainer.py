@@ -5,8 +5,7 @@ train step: per-epoch training over shuffled frames, validation every
 ``valid_every`` epochs, checkpoints every ``save_every``, ``load`` to resume.
 
 Not ported yet: the plots (the JAX trainer skips them when their import
-fails; here they are always skipped until viz is ported), ``remat_unets``,
-``adaptive_camera`` and ``carve_visibility_cap`` (all raise).
+fails; here they are always skipped until viz is ported).
 """
 
 from __future__ import annotations
@@ -53,20 +52,14 @@ def build_model(
     taken as ``"kernel"``; ``"tiled"`` (the JAX package's default off the
     TPU) and ``"global"`` run in plain PyTorch. ``cameras`` = (intrinsics
     [C,3,3], extrinsics [C,4,4]) replaces loading ``config.camera_fn``.
-
-    Keys of the JAX configuration that the port does not run yet raise
-    here rather than being dropped: ``carve_visibility_cap`` (ROADMAP.md
-    A.4).
+    ``adaptive_camera``, ``carve_visibility_cap`` and ``remat_unets`` go to
+    the model as the JAX trainer passes them (``trainer.py:38-75``).
     """
     if render_mode is None:
         render_mode = config.get("render_mode", "kernel")
     render_mode = {"pallas": "kernel"}.get(render_mode, render_mode)
     if render_mode not in ("kernel", "tiled", "global"):
         raise ValueError(f"unknown render_mode {render_mode!r}")
-    if config.get("carve_visibility_cap") is not None:
-        raise NotImplementedError(
-            "carve_visibility_cap is not ported yet (ROADMAP.md A.4): the "
-            "port carves on the exact path only")
     if cameras is None:
         intrinsic, extrinsic, _ = get_cam_params(
             config.camera_fn,
@@ -77,8 +70,6 @@ def build_model(
         )
     else:
         intrinsic, extrinsic = cameras
-    if config.adaptive_camera:
-        raise NotImplementedError("adaptive_camera is not ported yet")
     return PoseSplatter(
         intrinsics=intrinsic,
         extrinsics=extrinsic,
@@ -90,6 +81,7 @@ def build_model(
         ablation=ablation,
         volume_fill_color=config.volume_fill_color,
         holdout_views=config.holdout_views,
+        adaptive_camera=config.adaptive_camera,
         gaussian_mode=config.gaussian_mode,
         gaussian_config=config.gaussian_config,
         render_mode=render_mode,
@@ -97,9 +89,17 @@ def build_model(
         max_n=config.get("max_n", 16000),
         num_unets=config.get("num_unets", 3),
         base_filters=config.get("base_filters", 8),
+        carve_visibility_cap=config.get("carve_visibility_cap", None),
+        remat_unets=config.get("remat_unets", False),
         device=device,
         seed=seed,
     )
+
+
+def make_adaptive_fn(model: PoseSplatter):
+    """Alias of :meth:`PoseSplatter.make_adaptive_fn` (``trainer.py:78-81``);
+    it runs in the loader's threads, on the host."""
+    return model.make_adaptive_fn()
 
 
 def build_datasets(config: Config, splits=("train", "valid")):
@@ -154,18 +154,14 @@ def train_from_config(
     (W/2, H/2) from its anchor; here ``anchored`` follows the model, as
     that function's own docstring and the JAX synthetic benchmark intend.
     """
-    if config.get("remat_unets", False):
-        raise NotImplementedError("remat_unets is not ported yet "
-                                  "(ROADMAP.md A.6)")
-    if config.adaptive_camera:
-        raise NotImplementedError("adaptive_camera is not ported yet")
     model = build_model(config, ablation=ablation, device=device,
                         cameras=cameras, seed=seed)
     train_ds, valid_ds = datasets if datasets is not None else build_datasets(config)
+    adaptive_fn = make_adaptive_fn(model) if config.adaptive_camera else None
     loader = FrameLoader(train_ds, batch_size=batch_size, shuffle=True,
-                         seed=seed)
+                         seed=seed, adaptive_fn=adaptive_fn)
     valid_loader = FrameLoader(valid_ds, batch_size=batch_size, shuffle=False,
-                               seed=seed)
+                               seed=seed, adaptive_fn=adaptive_fn)
 
     state = create_train_state(model, config.lr)
     losses, validation_losses = [], []

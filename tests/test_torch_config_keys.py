@@ -1,9 +1,9 @@
 """Config keys of the JAX configuration that the port's ``build_model``
-must not drop: ``carve_visibility_cap`` raises until the capped carve is
-ported, ``render_mode`` "pallas" (the JAX name of the port's "kernel")
-builds the kernel path, "tiled" builds the tiled compositor, and an
-unknown mode raises at build time rather than deep inside the renderer.
-On the CPU, at a small size."""
+must not drop: ``carve_visibility_cap`` and ``remat_unets`` reach the model
+and change what it runs, ``render_mode`` "pallas" (the JAX name of the
+port's "kernel") builds the kernel path, "tiled" builds the tiled
+compositor, and an unknown mode raises at build time rather than deep
+inside the renderer. On the CPU, at a small size."""
 
 import numpy as np
 import pytest
@@ -37,11 +37,25 @@ def _build(**kw):
     return build_model(_config(**kw), device="cpu", cameras=(Ks, Es))
 
 
-def test_carve_visibility_cap_raises():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        _build(carve_visibility_cap=4096)
-    # An explicit null is the exact carve, which the port runs.
-    assert _build(carve_visibility_cap=None).render_mode == "kernel"
+def test_carve_visibility_cap_reaches_the_carve():
+    """The key reaches the model (as ``tests/test_model.py``'s passthrough
+    test holds for the JAX side), and its carve runs the compacted path: a
+    cap below the occupied count overflows, changing only the colours."""
+    model = _build(carve_visibility_cap=64)
+    assert model.carve_visibility_cap == 64
+    assert _build(carve_visibility_cap=None).carve_visibility_cap is None
+    Ks, Es = ring_cameras(C, W, H, focal=60.0, radius=0.6)
+    grid = create_3d_grid(0.3, 16, [[0, 16]] * 3)
+    f = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0),
+                         (0.09, 0.07, 0.06), n_frames=1, seed=0)
+    obs = model.observed_views
+    args = (f["mask"][0, obs], f["img"][0, obs], f["p_3d"][0], f["angle"][0])
+    capped = model.carve(*args)
+    model.carve_visibility_cap = None
+    exact = model.carve(*args)
+    assert int((exact[0] > 0).sum()) > 64  # the cap overflows
+    assert torch.equal(capped[0], exact[0])
+    assert float((capped[1:] - exact[1:]).abs().max()) > 1e-3
 
 
 @pytest.mark.parametrize("mode,expect", [
@@ -106,7 +120,15 @@ def test_render_mode_argument_maps_too():
     assert model.render_mode == "kernel"
 
 
-def test_remat_unets_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        train_from_config(_config(remat_unets=True), device="cpu",
-                          cameras=(np.eye(3)[None], np.eye(4)[None]))
+def test_remat_unets_reaches_the_net():
+    """``remat_unets`` builds a net that recomputes its U-Nets in the
+    backward: the final U-Net's forward runs twice in a train step."""
+    assert not _build().net.remat
+    model = _build(remat_unets=True)
+    assert model.net.remat
+    calls = []
+    model.net.final_unet.register_forward_pre_hook(lambda *a: calls.append(1))
+    vol = torch.rand(1, 16, 16, 16, 4)
+    stats = {}
+    model.net.process_volume(vol, stats).square().mean().backward()
+    assert len(calls) == 2 and stats

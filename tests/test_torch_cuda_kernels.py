@@ -15,6 +15,9 @@ capturable Adam against the eager update. The bench counterpart and
 ``graft_entry.entry`` turning TF32 off, the bench's fwd+bwd on the card
 against the CPU's and its CUDA-graph capture in kernel and tiled mode,
 and the O(P) ``composite_pixels`` against autograd through its scan.
+The carve's visibility cap on the card against the CPU, a remat train
+step against one without remat, and a captured step with the cap and
+remat against its eager twin.
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
 (the kernel has no CPU mode). On a machine with an NVIDIA GPU and ``nvcc``:
@@ -580,9 +583,10 @@ SMALL = {
 }
 
 
-def _small_run(dev, mode):
-    """A small model of ``mode`` at the trainer's fresh start, its frames
-    stacked, and the index triples of 8 steps."""
+def _small_run(dev, mode, **extra):
+    """A small model of ``mode`` (with the keyword arguments ``extra``) at
+    the trainer's fresh start, its frames stacked, and the index triples of
+    8 steps."""
     from pose_splatter_torch.models.pose_splatter import (
         PoseSplatter,
         init_means2d_center,
@@ -599,7 +603,7 @@ def _small_run(dev, mode):
 
     def model():
         m = PoseSplatter(Ks, Es, W, H, render_mode="kernel", device=dev,
-                         seed=0, **kw)
+                         seed=0, **kw, **extra)
         init_unet_primary_skip(m.net, in_channels=m.in_channels)
         if mode == "2d":
             init_means2d_center(m.net, W, H, anchored=True)
@@ -849,3 +853,133 @@ def test_composite_pixels_on_the_card_matches_ref(dev, kind):
     assert torch.equal(outs[0][1], outs[1][1])
     for a, b in zip(outs[0][2:], outs[1][2:]):
         assert ((a - b).abs() <= 1e-5 * b.abs().max()).all()
+
+
+def _carve_scene(adaptive):
+    """A 4-camera frame of an ellipsoid off the crop's centre and its carve
+    arguments (numpy), with the adaptive ``temp_K`` where asked."""
+    from pose_splatter_torch.utils.cameras import adjust_principal_points_to_seed
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import ring_cameras, synthetic_frames
+
+    C, H, W = 4, 96, 128
+    Ks, Es = ring_cameras(C, W, H, focal=200.0, radius=0.6)
+    grid = create_3d_grid(0.3, 32, [[0, 32]] * 3)
+    f = synthetic_frames(Ks, Es, H, W,
+                         grid.reshape(-1, 3).mean(0) + [0.02, -0.01, 0.01],
+                         (0.07, 0.05, 0.04), n_frames=1, seed=0)
+    K_mask = None
+    if adaptive:
+        K_mask = adjust_principal_points_to_seed(f["mask"][0], Ks, Es)[0]
+        K_mask = K_mask.astype(np.float32)
+    return (f["mask"][0], f["img"][0], f["p_3d"][0], f["angle"][:1][0], grid,
+            K_mask, Ks, Es)
+
+
+@pytest.mark.parametrize("cap,adaptive", [(None, False), ("fits", False),
+                                          ("overflows", False),
+                                          ("overflows", True)])
+def test_capped_carve_on_the_card_matches_the_cpu(dev, cap, adaptive):
+    """``carve_volume`` with a cap that fits, one that overflows and none,
+    and with an adaptive ``K_mask``, on the card against the CPU: the
+    occupancy and the overflow exact, the colours within 1e-6 (the colour
+    einsum reduces in another order on each device). Precondition, as in
+    the CPU parity test: both devices round every voxel's projection to
+    the same pixel."""
+    from pose_splatter_torch.ops import carving as tc
+    from pose_splatter_torch.utils import geometry as tg
+
+    args = _carve_scene(adaptive)
+    mask = args[0]
+    occupied = None
+    out = []
+    for d in (torch.device("cpu"), dev):
+        t = [None if a is None else torch.as_tensor(
+            np.asarray(a, np.float32), device=d) for a in args]
+        pts = tg.transform_grid(t[4], t[2], t[3]).reshape(-1, 3)
+        flat = tc._pixel_indices(tg.project_points(pts, t[6], t[7], clamp_z=True),
+                                 mask.shape[1], mask.shape[2])[2]
+        if occupied is None:
+            vol = tc.carve_volume(*t, visibility_cap=None)
+            occupied = int((vol[0] > 0).sum())
+        M = {None: None, "fits": occupied, "overflows": occupied // 3}[cap]
+        vol, ovf = tc.carve_volume(*t, visibility_cap=M, return_overflow=True)
+        exact = tc.carve_volume(*t)
+        out.append((flat.cpu(), vol.cpu(), int(ovf), exact.cpu()))
+    (f0, v0, o0, e0), (f1, v1, o1, e1) = out
+    assert torch.equal(f0, f1)
+    assert o0 == o1 and (o1 > 0) == (cap == "overflows")
+    assert torch.equal(v0[0], v1[0])
+    assert float((v0 - v1).abs().max()) <= 1e-6
+    if cap != "overflows":
+        assert float((v1 - e1).abs().max()) <= 1e-6
+
+
+def test_remat_step_on_the_card_matches_no_remat(dev, deterministic_cudnn):
+    """Two train steps of a remat model on the card against its twin
+    without remat: with deterministic convolutions the recomputed U-Net
+    runs the same kernels on the same inputs, so the losses, parameters
+    and statistics are equal bit for bit."""
+    from pose_splatter_torch.train.loop import create_train_state, make_train_step
+
+    runs = []
+    for remat in (False, True):
+        model, stack, idx = _small_run(dev, "2d", remat_unets=remat)
+        m = model()
+        assert m.net.remat is remat
+        state = create_train_state(m, 1e-3)
+        step = make_train_step(m, state.optimizer, 0.5, 0.1)
+        losses = []
+        for k in range(2):
+            f = idx[0][k]
+            batch = {n: v[f:f + 1] for n, v in stack.items()}
+            batch.update(view_idx=idx[1][k:k + 1], obs_idx=idx[2][k:k + 1])
+            state, met = step(state, batch)
+            losses.append(float(met["total"]))
+        runs.append((losses, m.net.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for k, x in runs[0][1].items():
+        assert torch.equal(x, runs[1][1][k]), k
+
+
+def test_captured_cap_remat_step_matches_the_eager_step(dev, deterministic_cudnn):
+    """``make_train_multi_step`` captures a step of a model with the carve's
+    visibility cap (small enough to overflow) and ``remat_unets``: its
+    replays against eager steps of a twin, bit for bit, as in
+    ``test_captured_step_matches_the_eager_step``."""
+    from pose_splatter_torch.train.loop import (
+        create_train_state,
+        make_train_multi_step,
+        make_train_step,
+    )
+
+    model, stack, idx = _small_run(dev, "2d", carve_visibility_cap=256,
+                                   remat_unets=True)
+    a, b = model(), model()
+    sa, sb = create_train_state(a, 1e-3), create_train_state(b, 1e-3)
+    ms = make_train_multi_step(a, sa.optimizer, 0.5, 0.1, stack,
+                               steps_per_call=4)
+    step = make_train_step(b, sb.optimizer, 0.5, 0.1)
+    graph_losses, eager_losses = [], []
+    for call in range(2):
+        sa, _ = ms(sa, *(x[4 * call:4 * call + 4] for x in idx))
+        graph_losses += ms.step_metrics["total"].tolist()
+    for k in range(8):
+        f = idx[0][k]
+        batch = {n: v[f:f + 1] for n, v in stack.items()}
+        batch.update(view_idx=idx[1][k:k + 1], obs_idx=idx[2][k:k + 1])
+        sb, m = step(sb, batch)
+        eager_losses.append(float(m["total"]))
+    from pose_splatter_torch.ops.carving import carve_volume
+
+    _, overflow = carve_volume(
+        *(a._tensor(stack[k][0]) for k in ("mask", "img", "p_3d", "angle")),
+        a.grid, None, a.Ks_obs, a.viewmats_obs, visibility_cap=256,
+        return_overflow=True)
+    assert int(overflow) > 0  # the captured carve overflows its cap
+    assert ms.replays == 5 and ms.graph_launches == {"composite_fwd": 1,
+                                                     "composite_bwd": 1}
+    assert graph_losses == eager_losses, (graph_losses, eager_losses)
+    for (k, x), y in zip(a.net.state_dict().items(),
+                         b.net.state_dict().values()):
+        assert torch.equal(x, y), (k, float((x - y).abs().max()))

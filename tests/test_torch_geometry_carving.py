@@ -151,8 +151,8 @@ def test_carve_volume_matches(angle):
     got = tcarv.carve_volume(
         torch.from_numpy(masks), torch.from_numpy(imgs),
         torch.from_numpy(center), torch.tensor(angle, dtype=torch.float32),
-        torch.from_numpy(grid), torch.from_numpy(Ks), torch.from_numpy(Es),
-        volume_fill_color=0.38).numpy()
+        torch.from_numpy(grid), None, torch.from_numpy(Ks),
+        torch.from_numpy(Es), volume_fill_color=0.38).numpy()
     assert got.shape == (4, 16, 16, 16)
     assert 0 < (ref[0] == 1.0).sum() < ref[0].size  # both thresholds carve
     np.testing.assert_array_equal(ref[0], got[0])  # occupancy exact

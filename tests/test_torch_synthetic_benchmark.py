@@ -170,11 +170,24 @@ def test_main_prints_the_jax_scripts_report(capsys):
     assert np.isfinite(report["holdout_psnr_db"])
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--carve-cap", "4096"], "A.4"), (["--remat-unets"], "A.6")])
-def test_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tsb.main(TINY + ["--steps", "1"] + flag)
+@pytest.mark.parametrize("flag,attr,value", [
+    (["--carve-cap", "256"], "carve_visibility_cap", 256),
+    (["--remat-unets"], "remat", True)])
+def test_flags_reach_the_model(flag, attr, value, monkeypatch, capsys):
+    """``--carve-cap`` and ``--remat-unets`` (the JAX script's flags) build
+    their model and train: a step runs and the report is finite."""
+    built = []
+    build = tsb.build_model
+
+    def spy(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(tsb, "build_model", spy)
+    report = tsb.main(TINY + ["--steps", "1"] + flag)
+    model = built[0]
+    assert getattr(model.net if attr == "remat" else model, attr) == value
+    assert report["steps"] == 1 and np.isfinite(report["holdout_psnr_db"])
 
 
 def test_default_device_is_the_card():

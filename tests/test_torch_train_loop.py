@@ -216,9 +216,15 @@ def test_train_from_config_two_epochs_and_resume(small, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("key", ["remat_unets", "adaptive_camera"])
-def test_train_from_config_refuses_what_is_not_ported(small, tmp_path, key):
+def test_train_from_config_runs_remat_and_adaptive(small, tmp_path, key):
+    """Each key reaches the model that ``train_from_config`` trains, and an
+    epoch of two steps and a validation pass run with it."""
     Ks, Es, frames = small
     data = FrameSet(frames, [0, 2, 3, 4])
-    with pytest.raises(NotImplementedError, match=key):
-        train_from_config(_config(tmp_path, **{key: True}), epochs=1,
-                          device="cpu", cameras=(Ks, Es), datasets=(data, data))
+    state, losses, vlosses = train_from_config(
+        _config(tmp_path, **{key: True}), epochs=1, device="cpu",
+        cameras=(Ks, Es), datasets=(data, data), max_batches=2)
+    model = state.model
+    assert (model.net.remat if key == "remat_unets" else model.adaptive_camera)
+    assert state.step == 2 and np.isfinite(losses[0]).all()
+    assert np.isfinite(vlosses[0])
