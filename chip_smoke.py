@@ -19,7 +19,7 @@ spill), then:
    back-to-back calls of ``dyngather.launch``, so the host's Python sets
    it), (b) on the device (200 launches captured in one CUDA graph,
    replayed between CUDA events), (c) the kernel's own duration from
-   ``torch.profiler`` (phase 15), and (e) the launch floor, (b) for a
+   ``torch.profiler`` (phase 16), and (e) the launch floor, (b) for a
    one-element ``zero_()``;
 3. kernel phase: the forward compositor (with and without its ``tbounds``
    store) and the backward compositor on synthetic instance arrays at the
@@ -100,14 +100,24 @@ spill), then:
 14. bridge: the 2D train phase's state to the JAX payload tree (inverse
    bridge, Adam converter) and back, bit-equal; a step resumed from the
    converted checkpoint file equals one from the original;
-15. profiled: what ``torch.profiler`` measures, deferred to after every
+15. preprocess: at ``configs/templates/tpu_3d.json``'s full width, (a)
+   ``calculate_visual_features`` with the 3D train phase's weights over 6
+   frames (the rig at L = 3: 32 views of 224x224, one forward-kernel
+   launch a frame): ms a frame, the launches, peak memory, the stages
+   from the code's own marks, the rig's overflow, the forward kernel
+   against its plain version on the rig's binned arrays, ResNet18 on the
+   32 renders card against CPU; (b) ``_carve_moments_batch`` and
+   ``_occupancy_batch`` on 16 frames of 4 views at 288x256, grid 112:
+   device ms a batch, card against CPU (occupancy exact); (c) LPIPS with
+   random weights on 6 pairs at 288x256, card against CPU;
+16. profiled: what ``torch.profiler`` measures, deferred to after every
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
    card's busy share of one more train step in each mode, of a K-step
    call beside an eager step, and of a bench-shape fwd+bwd
    (``device_busy``).
 
-``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 15
+``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 16
 for the gather. It prints the gather rows and the card, not the final
 ``ok`` line. The script measures the port of the tree it sits in, so a
 copy of it placed at the root of another commit's checkout measures that
@@ -190,6 +200,15 @@ PIGEON_AXES = (0.025, 0.015, 0.013)
 # The remat phase: losses and weights after 2 steps with and without remat,
 # relative to each tensor's largest entry.
 REMAT_RTOL = 1e-6
+# The preprocess phase: frames of the features pass and the rig's order
+# (L = 3: 32 views), ResNet18 card against CPU relative to the largest
+# feature, the carves' batch and moment tolerance, LPIPS card against CPU.
+PRE_FRAMES = 6
+PRE_L = 3
+PRE_FEAT_REL = 1e-4
+PRE_BATCH = 16
+PRE_RTOL = 1e-5
+PRE_RTOL_LPIPS = 1e-4
 
 
 def card_line() -> str:
@@ -874,14 +893,14 @@ def graph_ms(fn, launches: int = GRAPH_LAUNCHES,
     return start.elapsed_time(end) / (launches * replays)
 
 
-def try_graph_ms(fn):
-    """``(graph_ms(fn), None)``, or ``(None, why)`` where the capture refused
-    a launch: the line then says so, and the profiler's time (c) stands
-    alone, never in place of this one."""
+def try_graph_ms(fn, **kw):
+    """``(graph_ms(fn, **kw), None)``, or ``(None, why)`` where the capture
+    refused a launch: the line then says so, and the profiler's time (c)
+    stands alone, never in place of this one."""
     import torch
 
     try:
-        return graph_ms(fn), None
+        return graph_ms(fn, **kw), None
     except RuntimeError as e:
         torch.cuda.synchronize()
         return None, f"capture failed: {str(e).splitlines()[0][:160]}"
@@ -2256,6 +2275,282 @@ def bridge_phase(report, trained):
     return out
 
 
+def preprocess_phase(report, trained):
+    """Preprocessing and the visual-pose features at ``tpu_3d.json``'s full
+    width.
+
+    (a) ``calculate_visual_features`` with the 3D train phase's weights
+    over 6 of its frames at L = 3 (32 views of 224², one forward-kernel
+    launch a frame), writing ``feature_fn`` under ``build/``: ms a frame by
+    the host clock (after a warm-up ``dry_run``), the launches read around
+    it, the peak memory above the phase's start; then the same frames
+    through ``make_frame_features`` with the stages recorded (the code's
+    own marks) and each frame's rig overflow; the forward kernel against
+    its plain version on the rig's own binned arrays (within TOL), with its
+    time and bound; ResNet18 on one frame's 32 renders on the card against
+    the same module on the CPU (within PRE_FEAT_REL of the largest).
+    (b) ``_carve_moments_batch`` and ``_occupancy_batch`` on batches of
+    PRE_BATCH frames at grid 112 (the full grid, 1,404,928 voxels), 4
+    observed views at 288x256: device ms a batch (a CUDA graph where it
+    captures, else CUDA events; the line says which), and the CPU's run of
+    the same batch: occupancy and summed counts exact, means and
+    covariances at rtol PRE_RTOL. (c) LPIPS with random ``.npz`` weights
+    on 6 image pairs at 288x256, card against CPU at rtol PRE_RTOL_LPIPS.
+    """
+    import torch
+
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.ops.carving import get_volume
+    from pose_splatter_torch.ops.lpips import _ALEX_CFG, create_lpips
+    from pose_splatter_torch.models.resnet import (
+        create_feature_extractor,
+        preprocess_imagenet,
+    )
+    from pose_splatter_torch.preprocess.center_rotation import _carve_moments_batch
+    from pose_splatter_torch.preprocess.crop_indices import _occupancy_batch
+    from pose_splatter_torch.preprocess.visual_features import (
+        calculate_visual_features,
+        make_frame_features,
+    )
+    from pose_splatter_torch.utils import stages
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import FrameSet
+
+    out_dir = ROOT / "build" / "preprocess"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    config = config_3d(project_directory=str(out_dir),
+                       feature_fn="features.npy")
+    model = trained["state"].model
+    frames = {k: v[:PRE_FRAMES] for k, v in trained["frames"].items()}
+    data = FrameSet(frames, trained["observed"])
+    out = {}
+
+    # ---- (a) the features pass, with the launch count zeroed around it ----
+    torch.cuda.synchronize()
+    calculate_visual_features(config, model, data, dry_run=True, progress=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.composite_instances.launches = 0
+    t0 = time.perf_counter()
+    feats = calculate_visual_features(config, model, data, L=PRE_L,
+                                      progress=False)
+    torch.cuda.synchronize()
+    total_ms = 1e3 * (time.perf_counter() - t0)
+    launches = K.composite_instances.launches
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    written = np.load(config.feature_fn)
+    n_views = 2 * (PRE_L + 1) ** 2
+    print(f"[preprocess] calculate_visual_features: {PRE_FRAMES} frames x "
+          f"{n_views} views of 224x224 in {total_ms:.1f} ms "
+          f"({total_ms / PRE_FRAMES:.2f} ms a frame, host clock, set-up "
+          f"included); composite_fwd launches {launches}; peak "
+          f"{peak_gb:.3f} GB above the phase's start; features "
+          f"{written.shape} {written.dtype}", flush=True)
+    if launches != PRE_FRAMES:
+        raise AssertionError(f"[preprocess] {launches} composite_fwd launches "
+                             f"for {PRE_FRAMES} frames")
+    if written.shape != (PRE_FRAMES, (PRE_L + 1) ** 2, 512) or not (
+            written.dtype == np.float16 and np.isfinite(written).all()
+            and np.array_equal(written, feats)):
+        raise AssertionError("[preprocess] the written features are wrong")
+
+    # The same frames and yaws, each timed whole, then with the stages
+    # recorded.
+    frame_features = make_frame_features(model, PRE_L)
+    rng = np.random.default_rng(0)
+    thetas = [2 * np.pi * rng.random() for _ in range(PRE_FRAMES)]
+    inputs = [data.get(i, view_idx=0)[:4] for i in range(PRE_FRAMES)]
+    frame_ms = []
+    for i, (mask, img, p_3d, angle) in enumerate(inputs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame_features(mask, img, p_3d, np.float32(angle), np.float32(thetas[i]))
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"[preprocess] a frame timed whole (host clock, synchronised): "
+          f"{', '.join(f'{x:.2f}' for x in frame_ms)} ms, median "
+          f"{np.median(frame_ms):.2f}", flush=True)
+    recorded = []
+    with stages.record() as rec:
+        for i, (mask, img, p_3d, angle) in enumerate(inputs):
+            recorded.append(frame_features(mask, img, p_3d, np.float32(angle),
+                                           np.float32(thetas[i])))
+    rec_err = max(float(np.abs(f.cpu().numpy().astype(np.float16).astype(
+        np.float32) - feats[i].astype(np.float32)).max())
+        for i, f in enumerate(recorded))
+    names = ("carve", "unets", "select_head", "binning", "kernel", "untile",
+             "resnet", "sh")
+    med = {n: float(np.median(rec.spans[n][1:])) for n in names}
+    overflow = [int(b.overflow) for b in rec.values["binning"]]
+    b = rec.values["binning"][0]
+    instances = [int(x.counts.long().sum()) for x in rec.values["binning"]]
+    print(f"[preprocess] stages a frame (median of frames 1-{PRE_FRAMES - 1}, "
+          f"each mark synchronising): "
+          + " ".join(f"{'composite_fwd' if n == 'kernel' else n} {v:.2f}"
+                     for n, v in med.items())
+          + f" ms | rig instances {instances}, overflow {overflow} (the "
+          f"reference's per-camera cap 4N + T*G) | recorded features vs the "
+          f"written ones after the float16 cast: {rec_err:.3g}", flush=True)
+
+    args = (b.inst, b.astarts, b.counts, b.origins, R.DEFAULT_TILE,
+            R.DEFAULT_CHUNK, "conic")
+    rgb_t, alpha_t, jstop = K.composite_instances(*args)
+    ref = K.composite_instances_ref(*args)
+    err = max(float((rgb_t - ref[0]).abs().max()),
+              float((alpha_t - ref[1]).abs().max()))
+    if not torch.equal(jstop, ref[2]):
+        raise AssertionError("[preprocess] jstop differs on the rig's arrays")
+    ms = cuda_ms(lambda: K.composite_instances(*args), iters=20, warmup=2)
+    plain_ms = cuda_ms(lambda: K.composite_instances_ref(*args), iters=2)
+    bound = kernel_bound(b.astarts, b.counts, jstop, R.DEFAULT_TILE,
+                         R.DEFAULT_CHUNK)
+    print(f"[preprocess] composite_fwd (conic) on the rig's arrays "
+          f"({b.counts.numel()} tiles, {bound['busy_tiles']} busy, "
+          f"{bound['walked_rows']} rows walked): max|kernel-plain| {err:.3g} "
+          f"(tol {TOL}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+    if not err <= TOL:
+        raise AssertionError(f"[preprocess] the rig's kernel disagrees ({err})")
+
+    renders = rec.values["resnet"][0]  # frame 0's [32, 224, 224, 3]
+    extract, net = create_feature_extractor(None, "cuda")
+    cpu_net = type(net)()
+    cpu_net.load_state_dict(net.state_dict())
+    with torch.no_grad():
+        f_card = extract(renders)
+        f_cpu = cpu_net.eval()(preprocess_imagenet(renders.cpu()))
+    resnet_ms = cuda_ms(lambda: extract(renders), iters=10, warmup=2)
+    resnet_err = float((f_card.cpu() - f_cpu).abs().max())
+    resnet_scale = float(f_cpu.abs().max())
+    print(f"[preprocess] ResNet18 on frame 0's {renders.shape[0]} renders: "
+          f"card vs CPU {resnet_err:.3g} ({resnet_err / resnet_scale:.3g} of "
+          f"the largest, bound {PRE_FEAT_REL}); {resnet_ms:.3f} ms a call on "
+          f"the card (CUDA events)", flush=True)
+    if not resnet_err <= PRE_FEAT_REL * resnet_scale:
+        raise AssertionError("[preprocess] ResNet18 on the card disagrees")
+    out.update(frames=PRE_FRAMES, views=n_views, total_ms=total_ms,
+               ms_a_frame=float(np.median(frame_ms)), frame_ms=frame_ms,
+               launches=launches,
+               peak_memory_gb=peak_gb, stage_medians_ms=med,
+               overflow=overflow, instances=instances,
+               kernel=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound),
+               resnet=dict(max_abs_err=resnet_err, scale=resnet_scale,
+                           ms=resnet_ms))
+    del rec, recorded, renders
+
+    # ---- (b) the two preprocessing carves, card against CPU ----
+    Ks, Es, fr = ring_scene(config, VIEWS, PRE_BATCH, seed=4)
+    obs = trained["observed"]
+    cam = (torch.as_tensor(Ks[obs]), torch.as_tensor(Es[obs]))
+    masks = torch.as_tensor(fr["mask"][:, obs])
+    # World centre of each frame's ellipsoid (the crop's centre, yawed, plus
+    # the frame's shift): where the rough-centre step would put it.
+    crop_c = create_3d_grid(config.ell, config.grid_size,
+                            config.volume_idx).reshape(-1, 3).mean(0)
+    ang = fr["angle"].astype(np.float64)
+    centers = np.stack([np.cos(ang) * crop_c[0] - np.sin(ang) * crop_c[1],
+                        np.sin(ang) * crop_c[0] + np.cos(ang) * crop_c[1],
+                        np.full_like(ang, crop_c[2])], 1) + fr["p_3d"]
+    centers = torch.as_tensor(centers, dtype=torch.float32)
+    angles = torch.as_tensor(fr["angle"])
+    grid_t = torch.as_tensor(create_3d_grid(config.ell_tracking,
+                                            config.grid_size))
+    grid_c = torch.as_tensor(create_3d_grid(config.ell, config.grid_size))
+    C = len(obs)
+    thr = (C - 1.0) / C
+    runs = {}
+    for d in ("cuda", "cpu"):
+        t = lambda x: x.to(d)  # noqa: E731
+        mk = (t(masks), t(centers), t(grid_t), t(cam[0]), t(cam[1]))
+        oc = (t(masks), t(centers), t(angles), t(grid_c), t(cam[0]), t(cam[1]))
+        t0 = time.perf_counter()
+        means, covs = _carve_moments_batch(*mk, carve_threshold=thr)
+        binary = get_volume(mk[0][..., None], mk[3], mk[4],
+                            mk[2][None] + mk[1][:, None, None, None, :]
+                            )[:, 0] >= thr
+        occ = _occupancy_batch(*oc, carve_threshold=thr)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        runs[d] = dict(means=means.cpu(), covs=covs.cpu(), binary=binary.cpu(),
+                       occ=occ.cpu(), s=time.perf_counter() - t0)
+        if d == "cuda":
+            timing = {}
+            for name, fn in (
+                    ("carve_moments", lambda: _carve_moments_batch(
+                        *mk, carve_threshold=thr)),
+                    ("occupancy", lambda: _occupancy_batch(
+                        *oc, carve_threshold=thr))):
+                # 4 calls a graph: a call holds gigabytes of temporaries.
+                g_ms, why = try_graph_ms(fn, launches=4, replays=3)
+                timing[name] = dict(
+                    ms=g_ms if g_ms is not None else cuda_ms(fn, iters=5),
+                    how="CUDA graph" if g_ms is not None else
+                    f"CUDA events ({why})")
+            del mk, oc
+            torch.cuda.empty_cache()
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    occ_equal = torch.equal(gpu["binary"], cpu["binary"])
+    sum_equal = torch.equal(gpu["occ"], cpu["occ"])
+    grid_scale = float(grid_t.abs().max())
+    mean_err = float((gpu["means"] - cpu["means"]).abs().max())
+    cov_err = float(((gpu["covs"] - cpu["covs"]).abs()
+                     / (cpu["covs"].abs() + cpu["covs"].abs().max())).max())
+    moments_ok = (torch.allclose(gpu["means"], cpu["means"], rtol=PRE_RTOL,
+                                 atol=PRE_RTOL * grid_scale)
+                  and torch.allclose(gpu["covs"], cpu["covs"], rtol=PRE_RTOL,
+                                     atol=PRE_RTOL * float(cpu["covs"].abs().max())))
+    per_frame = gpu["binary"].reshape(PRE_BATCH, -1).sum(1).tolist()
+    print(f"[preprocess] carves of {PRE_BATCH} frames x {C} views at "
+          f"{W3}x{H3}, grid {config.grid_size} ({config.grid_size ** 3} "
+          f"voxels): _carve_moments_batch "
+          f"{timing['carve_moments']['ms']:.3f} ms a batch "
+          f"({timing['carve_moments']['how']}), _occupancy_batch "
+          f"{timing['occupancy']['ms']:.3f} ms a batch "
+          f"({timing['occupancy']['how']}); CPU {cpu['s']:.2f} s for both; "
+          f"occupied voxels a frame {per_frame}; occupancy equal {occ_equal}, "
+          f"summed counts equal {sum_equal} (max {int(gpu['occ'].max())}); "
+          f"means {mean_err:.3g}, covariances {cov_err:.3g} (rtol "
+          f"{PRE_RTOL})", flush=True)
+    if not (occ_equal and sum_equal and moments_ok and min(per_frame) > 0):
+        raise AssertionError("[preprocess] the carves on the card disagree "
+                             "with the CPU")
+    out["carves"] = dict(batch=PRE_BATCH, views=C, grid=config.grid_size,
+                         timing=timing, cpu_s=cpu["s"],
+                         occupied_per_frame=per_frame, mean_err=mean_err,
+                         cov_rel_err=cov_err)
+
+    # ---- (c) LPIPS, card against CPU ----
+    path = str(out_dir / "lpips_random.npz")
+    rng = np.random.default_rng(7)
+    w, cin = {}, 3
+    for i, (f, k, _, _) in enumerate(_ALEX_CFG):
+        w[f"conv{i}_kernel"] = rng.normal(0, (cin * k * k) ** -0.5,
+                                          (k, k, cin, f)).astype(np.float32)
+        w[f"conv{i}_bias"] = rng.normal(0, 0.1, f).astype(np.float32)
+        w[f"lin{i}"] = rng.uniform(0, 1, f).astype(np.float32)
+        cin = f
+    np.savez(path, **w)
+    x = torch.as_tensor(fr["img"][0])  # 6 views at 288x256
+    y = torch.as_tensor(fr["img"][1])
+    lp_card = create_lpips(path, "cuda")
+    d_card = lp_card(x.cuda(), y.cuda()).cpu()
+    d_cpu = create_lpips(path, "cpu")(x, y)
+    lp_ms = cuda_ms(lambda: lp_card(x.cuda(), y.cuda()), iters=10, warmup=2)
+    lp_err = float(((d_card - d_cpu).abs() / d_cpu.abs()).max())
+    print(f"[preprocess] LPIPS on {len(x)} pairs at {W3}x{H3}: card "
+          f"{[round(float(v), 6) for v in d_card]}, CPU relative error "
+          f"{lp_err:.3g} (rtol {PRE_RTOL_LPIPS}); {lp_ms:.3f} ms a call on the "
+          f"card", flush=True)
+    if not (lp_err <= PRE_RTOL_LPIPS and bool((d_cpu > 0).all())):
+        raise AssertionError("[preprocess] LPIPS on the card disagrees")
+    out["lpips"] = dict(pairs=len(x), rel_err=lp_err, ms=lp_ms,
+                        card=d_card.tolist())
+    report["preprocess_phase"] = out
+    return out
+
+
 def _leaves(tree):
     """The numpy leaves of a nested dict / tuple tree, in order."""
     if isinstance(tree, dict):
@@ -2347,6 +2642,7 @@ def main(argv=None) -> int:
         run("adaptive3d", adaptive3d_phase, card, later)
         run("remat2d", remat2d_phase, card, later)
         run("bridge", bridge_phase, res["train2d"][2])
+        run("preprocess", preprocess_phase, res["train3d"][2])
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -2367,6 +2663,7 @@ def main(argv=None) -> int:
     m2, m3 = res["multistep2d"], res["multistep3d"]
     bench_lines = res["bench"]
     cap, ad3, rm2 = res["carve_cap"], res["adaptive3d"], res["remat2d"]
+    vf = res["preprocess"]["kernel"]
 
     def bench_launches(kernel):
         return {f"launches_bench_{m}": bench_lines[f"{m}_kernel"]["launches"][
@@ -2377,7 +2674,8 @@ def main(argv=None) -> int:
         t3["fwd_max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["fwd_max_abs_err"]
         for m in ("3d", "2d")] + [
-        ad3["kernels"]["fwd_max_abs_err"], rm2["kernels"]["fwd_max_abs_err"]]
+        ad3["kernels"]["fwd_max_abs_err"], rm2["kernels"]["fwd_max_abs_err"],
+        vf["max_abs_err"]]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
         tk["max_abs_err"], t3["max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["bwd_max_abs_err"]
@@ -2414,7 +2712,12 @@ def main(argv=None) -> int:
              ms_3d_train=t3["fwd_ms"], plain_ms_3d_train=t3["fwd_plain_ms"],
              bound_ms_3d_train=t3["fwd_bound"]["bound_ms"],
              cuda_launches_a_call=sk["split"]["launches_per_call"],
-             past_jstop_share_3d_eval=e3["split"]["past_jstop_share"]),
+             past_jstop_share_3d_eval=e3["split"]["past_jstop_share"],
+             launches_visual_features=res["preprocess"]["launches"],
+             ms_visual_features=vf["ms"],
+             plain_ms_visual_features=vf["plain_ms"],
+             bound_ms_visual_features=vf["bound_ms"],
+             bound_by_visual_features=vf["bound_by"]),
         dict(name="composite_bwd", route="cuda",
              source="pose_splatter_torch/csrc/composite_bwd.cu",
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",

@@ -10,9 +10,12 @@ binning → the hand-written CUDA compositors, or the ``"tiled"`` and
 ``"global"`` compositors in plain PyTorch → losses, Adam, K steps a call),
 the renderer facade, the carve's visibility cap, the adaptive camera,
 ``remat_unets``, checkpoints that cross to and from the JAX package
-(``train/checkpoint_convert.py``), and the counterparts of ``bench.py``
+(``train/checkpoint_convert.py``), the counterparts of ``bench.py``
 (``scripts/bench.py``), ``__graft_entry__.py::entry`` (``graft_entry.py``)
-and ``scripts/synthetic_benchmark.py``.
+and ``scripts/synthetic_benchmark.py``, and preprocessing
+(``preprocess/``, ``tracking.py``, ``scripts/preprocess.py``: the
+center/rotation and crop carves on the device, the visual-pose features
+through ResNet18 in ``models/resnet.py``) with LPIPS (``ops/lpips.py``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise instead of running on the CPU.

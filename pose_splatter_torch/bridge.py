@@ -18,6 +18,10 @@ names, so one bridge serves models with and without ``remat_unets``.
   more.
 - BatchNorm scale, bias, mean and var are copied as they are; ``scale``
   is copied.
+
+``resnet_from_flax`` and ``alexnet_from_flax`` carry the auxiliary nets'
+Flax weights (ResNet18, LPIPS's AlexNet trunk and heads) to the port's
+modules, 2D kernels ``[kh,kw,in,out]`` → ``[out,in,kh,kw]``.
 """
 
 from __future__ import annotations
@@ -146,3 +150,60 @@ def variables_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
         else:
             raise KeyError(f"unexpected state-dict entry {name!r}")
     return {"params": params, "batch_stats": stats}
+
+
+# ----------------------------------------------------------------------------
+# The auxiliary nets: ResNet-18 and LPIPS's AlexNet trunk.
+# ----------------------------------------------------------------------------
+
+def _conv2d(kernel, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    """A Flax 2D conv kernel [kh,kw,in,out] → torch [out,in,kh,kw]."""
+    sd[f"{prefix}.weight"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
+
+
+def resnet_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's Flax ``ResNet18`` variables (numpy leaves) → a
+    state dict of :class:`pose_splatter_torch.models.resnet.ResNet18` in
+    torchvision's key layout (``layer{s}_{b}/downsample_conv`` →
+    ``layer{s}.{b}.downsample.0``, ``downsample_bn`` → ``.1``)."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def bn(p, s, prefix):
+        sd[f"{prefix}.weight"] = _t(p["scale"])
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+        sd[f"{prefix}.running_mean"] = _t(s["mean"])
+        sd[f"{prefix}.running_var"] = _t(s["var"])
+
+    for name, sub in params.items():
+        if name == "conv1":
+            _conv2d(sub["kernel"], "conv1", sd)
+        elif name == "bn1":
+            bn(sub, stats["bn1"], "bn1")
+        elif name.startswith("layer"):
+            stage, block = name[5:].split("_")
+            pre = f"layer{stage}.{block}"
+            for layer, p in sub.items():
+                torch_name = {"downsample_conv": "downsample.0",
+                              "downsample_bn": "downsample.1"}.get(layer, layer)
+                if "kernel" in p:
+                    _conv2d(p["kernel"], f"{pre}.{torch_name}", sd)
+                else:
+                    bn(p, stats[name][layer], f"{pre}.{torch_name}")
+        else:
+            raise KeyError(f"unexpected ResNet18 parameter group {name!r}")
+    return sd
+
+
+def alexnet_from_flax(params: Mapping[str, Any], lins) -> Dict[str, Any]:
+    """The JAX package's LPIPS weights (``load_weights``' ``params`` of
+    ``AlexNetFeatures``, ``conv{i}``, and its 5 ``lins``) → the port's
+    ``ops/lpips.py::load_weights`` form: {"features": the trunk's state
+    dict under torchvision's ``features.{0,3,6,8,10}`` names, "lins": 5
+    tensors}."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, ti in enumerate((0, 3, 6, 8, 10)):
+        _conv2d(params[f"conv{i}"]["kernel"], f"features.{ti}", sd)
+        sd[f"features.{ti}.bias"] = _t(params[f"conv{i}"]["bias"])
+    return {"features": sd, "lins": [_t(w) for w in lins]}

@@ -35,15 +35,17 @@ NewStats = Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]
 
 
 @torch.no_grad()
-def flax_init_(module: nn.Module) -> None:
+def flax_init_(module: nn.Module,
+               generator: Optional[torch.Generator] = None) -> None:
     """Flax's default initialisers for every conv, transpose-conv and dense
     layer in ``module``, in place: ``lecun_normal`` weights (a normal
     truncated at ±2 standard deviations, rescaled to variance 1/fan_in) and
-    zero biases. Fan-in as Flax counts it on its own kernel layout:
-    ``in`` for ``nn.Dense``, ``in · kd·kh·kw`` for ``nn.Conv`` and
+    zero biases, drawn from ``generator`` (default: the global RNG).
+    Fan-in as Flax counts it on its own kernel layout: ``in`` for
+    ``nn.Dense``, ``in · kd·kh·kw`` (2D: ``in · kh·kw``) for ``nn.Conv`` and
     ``nn.ConvTranspose`` (torch keeps a transpose conv's ``in`` on axis 0)."""
     for mod in module.modules():
-        if isinstance(mod, (nn.Conv3d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.Linear)):
             fan_in = mod.weight[0].numel()
         elif isinstance(mod, nn.ConvTranspose3d):
             fan_in = mod.weight.shape[0] * mod.weight[0, 0].numel()
@@ -52,8 +54,10 @@ def flax_init_(module: nn.Module) -> None:
         # Flax: stddev = sqrt(1 / fan_in) / 0.8796..., the std of a unit
         # normal truncated at ±2.
         std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std)
-        nn.init.zeros_(mod.bias)
+        nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        if mod.bias is not None:
+            nn.init.zeros_(mod.bias)
 
 
 class BatchNorm(nn.Module):

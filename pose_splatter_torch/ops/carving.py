@@ -1,5 +1,8 @@
 """Shape carving: multi-camera silhouettes + RGB → colored voxel volume.
 
+``get_volume`` is the plain averaged back-projection that preprocessing
+carves with, for one frame or a batch of frames at once.
+
 Counterpart of ``pose_splatter_tpu/ops/carving.py::carve_volume``: the
 nearest-pixel gathers (one fused 4-channel gather when mask and color share
 intrinsics, a separate mask projection for the adaptive camera's
@@ -50,6 +53,41 @@ def sample_nearest_pixels(images: torch.Tensor, pix: torch.Tensor) -> torch.Tens
     _, _, flat = _pixel_indices(pix, H, W)  # [C, N]
     images_flat = images.reshape(C, H * W, ch)
     return torch.gather(images_flat, 1, flat[..., None].expand(-1, -1, ch))
+
+
+def get_volume(
+    images: torch.Tensor,
+    intrinsics: torch.Tensor,
+    extrinsics: torch.Tensor,
+    grid_points: torch.Tensor,
+) -> torch.Tensor:
+    """Averaged nearest-pixel back-projection of ``images`` onto
+    ``grid_points`` (``carving.py:63-78``), for one frame or a batch.
+
+    One frame: images [C,H,W,ch], intrinsics [C,3,3], grid_points
+    [n1,n2,n3,3] → [ch,n1,n2,n3]. A batch of B frames (the JAX callers
+    ``vmap`` it): images [B,C,H,W,ch], intrinsics [C,3,3] or per frame
+    [B,C,3,3], grid_points [B,n1,n2,n3,3] → [B,ch,n1,n2,n3], as one
+    batched projection and gather. Extrinsics [C,4,4] are shared. The
+    projection is ``project_points``' (no z clamp), in its order: the
+    extrinsic product, then the intrinsic one, then ``/ (z + eps)``.
+    """
+    if images.dim() == 4:
+        return get_volume(images[None], intrinsics, extrinsics,
+                          grid_points[None])[0]
+    B, C, H, W, ch = images.shape
+    n1, n2, n3 = grid_points.shape[1:4]
+    pts = grid_points.reshape(B, -1, 3)
+    pts_h = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)  # [B,N,4]
+    cam = torch.einsum("cij,bnj->bcni", extrinsics, pts_h)[..., :3]
+    K = intrinsics.expand(B, C, 3, 3)
+    pix_h = torch.einsum("bcij,bcnj->bcni", K, cam)  # [B,C,N,3]
+    pix = pix_h[..., :2] / (pix_h[..., 2:3] + 1e-8)
+    _, _, flat = _pixel_indices(pix, H, W)  # [B,C,N]
+    sampled = torch.gather(images.reshape(B, C, H * W, ch), 2,
+                           flat[..., None].expand(-1, -1, -1, ch))
+    avg = sampled.mean(dim=1)  # [B,N,ch]
+    return avg.transpose(1, 2).reshape(B, ch, n1, n2, n3)
 
 
 def ray_cast_visibility_pair(

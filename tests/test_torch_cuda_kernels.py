@@ -17,7 +17,9 @@ against the CPU's and its CUDA-graph capture in kernel and tiled mode,
 and the O(P) ``composite_pixels`` against autograd through its scan.
 The carve's visibility cap on the card against the CPU, a remat train
 step against one without remat, and a captured step with the cap and
-remat against its eager twin.
+remat against its eager twin. ResNet18, LPIPS, one frame of the
+visual-pose features and the preprocessing carves on the card against the
+CPU, and the forward kernel on a spherical rig's binned arrays.
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
 (the kernel has no CPU mode). On a machine with an NVIDIA GPU and ``nvcc``:
@@ -983,3 +985,146 @@ def test_captured_cap_remat_step_matches_the_eager_step(dev, deterministic_cudnn
     for (k, x), y in zip(a.net.state_dict().items(),
                          b.net.state_dict().values()):
         assert torch.equal(x, y), (k, float((x - y).abs().max()))
+
+
+# ----------------------------------------------------------------------------
+# Preprocessing and the visual-pose features on the card.
+# ----------------------------------------------------------------------------
+
+def test_resnet18_on_the_card_matches_the_cpu(dev):
+    """ResNet18 (Flax's initialisers from one generator) on 2 images of
+    224² on the card against the CPU, within 1e-4 of the largest |feature|
+    (cuDNN float32 convolutions, TF32 off)."""
+    from pose_splatter_torch.models.resnet import create_feature_extractor
+
+    x = torch.rand(2, 224, 224, 3, generator=torch.Generator().manual_seed(0))
+    outs = []
+    for d in ("cpu", dev):
+        extract, _ = create_feature_extractor(
+            None, d, torch.Generator().manual_seed(1))
+        outs.append(extract(x.to(d)).cpu())
+    assert not torch.backends.cudnn.allow_tf32
+    assert outs[0].shape == (2, 512)
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * float(outs[0].abs().max())
+
+
+def _lpips_npz(path, seed=0):
+    """The JAX package's LPIPS ``.npz`` layout with random weights."""
+    from pose_splatter_torch.ops.lpips import _ALEX_CFG
+
+    rng = np.random.default_rng(seed)
+    d, cin = {}, 3
+    for i, (f, k, _, _) in enumerate(_ALEX_CFG):
+        d[f"conv{i}_kernel"] = rng.normal(0, (cin * k * k) ** -0.5,
+                                          (k, k, cin, f)).astype(np.float32)
+        d[f"conv{i}_bias"] = rng.normal(0, 0.1, f).astype(np.float32)
+        d[f"lin{i}"] = rng.uniform(0, 1, f).astype(np.float32)
+        cin = f
+    np.savez(path, **d)
+    return str(path)
+
+
+def test_lpips_on_the_card_matches_the_cpu(dev, tmp_path):
+    """LPIPS on 3 image pairs of 96x128 on the card against the CPU, rtol
+    1e-4."""
+    from pose_splatter_torch.ops.lpips import create_lpips
+
+    path = _lpips_npz(tmp_path / "lpips.npz")
+    gen = torch.Generator().manual_seed(2)
+    x, y = torch.rand(2, 3, 96, 128, 3, generator=gen)
+    ref = create_lpips(path, device="cpu")(x, y)
+    got = create_lpips(path, device=dev)(x.to(dev), y.to(dev)).cpu()
+    assert got.shape == (3,) and bool((ref > 0).all())
+    assert torch.allclose(got, ref, rtol=1e-4, atol=0)
+
+
+def _rig_run(dev):
+    """The small 3D model on ``dev`` and the rig's frame function (L = 1:
+    8 views at 224²), ResNet18 from one generator seed."""
+    from pose_splatter_torch.models.pose_splatter import PoseSplatter
+    from pose_splatter_torch.preprocess.visual_features import make_frame_features
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import ring_cameras, synthetic_frames
+
+    (C, H, W), focal, axes, kw = SMALL["3d"]
+    Ks, Es = ring_cameras(C, W, H, focal=focal, radius=0.6)
+    model = PoseSplatter(Ks, Es, W, H, render_mode="kernel", device=dev, seed=0,
+                         **kw)
+    grid = create_3d_grid(kw["ell"], kw["grid_size"], kw["volume_idx"])
+    f = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0), axes,
+                         n_frames=1, seed=0)
+    obs = model.observed_views
+    frame = (f["mask"][0, obs], f["img"][0, obs], f["p_3d"][0],
+             np.float32(f["angle"][0]), np.float32(0.7))
+    fn = make_frame_features(model, 1, None, torch.Generator().manual_seed(3))
+    return fn, frame
+
+
+def test_visual_features_on_the_card_match_the_cpu(dev):
+    """One frame's features (carve → U-Nets → Gaussians → the rig through
+    the forward kernel → ResNet18 → |A·f|) on the card against the CPU's
+    plain path, within 1e-4 of the largest; one compositor launch a
+    frame."""
+    outs, launches = [], None
+    for d in ("cpu", dev):
+        fn, frame = _rig_run(d)
+        before = tk.composite_instances.launches
+        outs.append(fn(*frame).cpu())
+        if d is dev:
+            launches = tk.composite_instances.launches - before
+    assert outs[0].shape == (4, 512)
+    assert launches == 1
+    err = float((outs[0] - outs[1]).abs().max())
+    assert err <= 1e-4 * float(outs[0].abs().max()), err
+
+
+def test_forward_kernel_on_the_rig_arrays(dev):
+    """The forward compositor against its plain version on the instance
+    arrays that a rig render binned (8 views x 28 x 2 tiles of (8, 128);
+    the second column of tiles partly off the 224-pixel image)."""
+    fn, frame = _rig_run(dev)
+    with stages.record(dev) as rec:
+        fn(*frame)
+    b = rec.values["binning"][0]
+    assert b.counts.numel() == 8 * 28 * 2 and int(b.counts.sum()) > 0
+    args = (b.inst, b.astarts, b.counts, b.origins, tr.DEFAULT_TILE,
+            tr.DEFAULT_CHUNK, "conic")
+    rgb, alpha, jstop = tk.composite_instances(*args)
+    ref = tk.composite_instances_ref(*args)
+    assert torch.equal(jstop, ref[2])
+    assert float((rgb - ref[0]).abs().max()) <= TOL
+    assert float((alpha - ref[1]).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("per_frame_K", [False, True])
+def test_preprocessing_carves_on_the_card_match_the_cpu(dev, per_frame_K):
+    """``_carve_moments_batch`` and ``_occupancy_batch`` on 4 frames of 4
+    views at grid 48 on the card against the CPU: occupancy exactly, the
+    moments at rtol 1e-5 (of the grid's scale for the means)."""
+    from pose_splatter_torch.preprocess.center_rotation import _carve_moments_batch
+    from pose_splatter_torch.preprocess.crop_indices import _occupancy_batch
+    from pose_splatter_torch.utils.geometry import create_3d_grid
+    from pose_splatter_torch.utils.synthetic import ring_cameras, synthetic_frames
+
+    B, C, H, W = 4, 4, 96, 128
+    Ks, Es = ring_cameras(C, W, H, focal=220.0, radius=1.0)
+    f = synthetic_frames(Ks, Es, H, W, np.zeros(3), (0.12, 0.08, 0.07), B, seed=0)
+    grid = create_3d_grid(0.4, 48)
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 0.01, (B, 3)).astype(np.float32)
+    angles = rng.uniform(-3, 3, B).astype(np.float32)
+    K = np.repeat(Ks[None], B, 0) if per_frame_K else Ks
+    if per_frame_K:
+        K[:, :, :2, 2] += rng.uniform(-2, 2, (B, C, 2)).astype(np.float32)
+    outs = []
+    for d in ("cpu", dev):
+        t = [torch.as_tensor(a, device=d) for a in
+             (f["mask"], centers, grid, K, Es, angles)]
+        mean, cov = _carve_moments_batch(*t[:5], carve_threshold=0.75)
+        occ = _occupancy_batch(t[0], t[1], t[5], t[2], t[3], t[4],
+                               carve_threshold=0.75)
+        outs.append((mean.cpu(), cov.cpu(), occ.cpu()))
+    (m0, c0, o0), (m1, c1, o1) = outs
+    assert torch.equal(o0, o1) and int(o0.max()) == B
+    assert torch.allclose(m1, m0, rtol=1e-5, atol=1e-5 * float(np.abs(grid).max()))
+    assert torch.allclose(c1, c0, rtol=1e-5, atol=1e-5 * float(c0.abs().max()))
