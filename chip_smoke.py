@@ -110,14 +110,24 @@ spill), then:
    ``_occupancy_batch`` on 16 frames of 4 views at 288x256, grid 112:
    device ms a batch, card against CPU (occupancy exact); (c) LPIPS with
    random weights on 6 pairs at 288x256, card against CPU;
-16. profiled: what ``torch.profiler`` measures, deferred to after every
+16. viz_eval: the output layer at full width: (a) ``render_turntable``,
+   8 novel views of a frame of the 3D train phase at ``tpu_3d.json``'s
+   image size 1152x1024 through intrinsics at ``ds = 1`` (one
+   forward-kernel launch a view, 1,152 tiles): ms a view, one view's
+   stages, the kernel against its plain version on its binned arrays
+   with its bound, the instance rows kept and dropped; (b) the
+   evaluation's metrics and LPIPS over ``render_images_in_memory``'s
+   renders, card against CPU; (c) ``extract_world_gaussians`` card
+   against CPU and the four savers; (d) ``profile_model`` on the 2D north
+   star with both compositors' launches, and a ``trace`` of one fwd+bwd;
+17. profiled: what ``torch.profiler`` measures, deferred to after every
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
    card's busy share of one more train step in each mode, of a K-step
    call beside an eager step, and of a bench-shape fwd+bwd
    (``device_busy``).
 
-``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 16
+``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 17
 for the gather. It prints the gather rows and the card, not the final
 ``ok`` line. The script measures the port of the tree it sits in, so a
 copy of it placed at the root of another commit's checkout measures that
@@ -209,6 +219,14 @@ PRE_FEAT_REL = 1e-4
 PRE_BATCH = 16
 PRE_RTOL = 1e-5
 PRE_RTOL_LPIPS = 1e-4
+# The viz/eval phase: novel views a turntable at the full image size, the
+# evaluation's metrics and LPIPS card against CPU (relative), the export's
+# parameters card against CPU (relative to each array's largest), and the
+# timing iterations of profile_model.
+NOVEL_VIEWS = 8
+EVAL_RTOL = 1e-5
+EXPORT_TOL = 1e-5
+PROFILE_ITERS = 5
 
 
 def card_line() -> str:
@@ -1459,7 +1477,8 @@ def train_phase(report, key, config, k_steps, later):
     with stages.record() as rec:
         state, losses, _ = train_from_config(
             config, epochs=1, max_batches=k_steps, batch_size=1, seed=0,
-            device="cuda", cameras=(Ks, Es), datasets=(train, valid))
+            device="cuda", cameras=(Ks, Es), datasets=(train, valid),
+            make_plots=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = dict(composite_fwd=K.composite_instances.launches,
@@ -1995,7 +2014,8 @@ def adaptive3d_phase(report, card, later):
     t0 = time.perf_counter()
     state, losses, _ = train_from_config(
         config, epochs=1, max_batches=K_STEPS_3D, batch_size=1, seed=0,
-        device="cuda", cameras=(Ks, Es), datasets=(train, valid))
+        device="cuda", cameras=(Ks, Es), datasets=(train, valid),
+        make_plots=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     train_launches = dict(composite_fwd=K.composite_instances.launches,
@@ -2551,6 +2571,285 @@ def preprocess_phase(report, trained):
     return out
 
 
+def viz_eval_phase(report, trained3, trained2):
+    """Novel views, evaluation, export and profiling at full width.
+
+    (a) ``render_turntable`` with NOVEL_VIEWS offsets of one ring frame of
+    the 3D train phase (``tpu_3d.json`` as written, its weights) at the
+    image size 1152x1024 through the ring cameras' intrinsics scaled to
+    ``ds = 1`` (x ``image_downsample``): the forward-kernel launches read
+    around it (one a view), every view finite and showing the animal; ms a
+    view (each view synchronised, median of NOVEL_VIEWS after a warm-up);
+    one view with its stages recorded (the code's own marks); the forward
+    kernel against its plain version on that view's binned arrays (rgb,
+    alpha, ``jstop``, ``tbounds``; within TOL), its CUDA-event ms, bound
+    and the plain version's ms; the instance rows kept and dropped at the
+    reference's per-camera cap. (b) ``render_images_in_memory`` over the
+    phase's 9 frames, then ``image_metrics`` and ``lpips_metric`` (seeded
+    AlexNet weights written under ``build/``) over the test split on the
+    card and on the CPU with the same uint8 arrays: each per-camera value
+    within EVAL_RTOL relative. (c) ``extract_world_gaussians`` on the card
+    and on a CPU twin of the model: counts equal, rows matched by their
+    voxel, parameters within EXPORT_TOL of each array's largest; the four
+    savers under ``build/``, the npz read back. (d) ``profile_model`` on the
+    2D north star with the 2D train phase's weights, both compositors'
+    launches read around it (its ``full_fwd_bwd`` is the only backward:
+    one ``composite_bwd`` a call; ``composite_fwd`` in the render, the
+    forward and the forward-and-backward), and ``trace`` over one
+    ``fwd_bwd`` writing a non-empty ``torch.profiler`` trace.
+    """
+    import torch
+
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.ops.lpips import _ALEX_CFG, create_lpips
+    from pose_splatter_torch.train.evaluate import (
+        image_metrics,
+        lpips_metric,
+        render_images_in_memory,
+    )
+    from pose_splatter_torch.train.trainer import build_model
+    from pose_splatter_torch.utils import stages
+    from pose_splatter_torch.utils.profiling import fwd_bwd, profile_model, trace
+    from pose_splatter_torch.utils.synthetic import FrameSet
+    from pose_splatter_torch.viz.export import (
+        EXTENSIONS,
+        SAVERS,
+        extract_world_gaussians,
+    )
+    from pose_splatter_torch.viz.render_image import (
+        render_novel_view,
+        render_turntable,
+    )
+
+    out_dir = ROOT / "build" / "viz_eval"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    config = config_3d()
+    model = trained3["state"].model
+    frames, observed = trained3["frames"], trained3["observed"]
+    data = FrameSet(frames, observed)
+    Ks, Es = trained3["cameras"]
+    ds = config.image_downsample
+    Wf, Hf = config.image_width, config.image_height
+    assert (Wf, Hf) == (W3 * ds, H3 * ds)
+    K_full = np.array(Ks, np.float32)
+    K_full[:, :2] *= ds  # fx, cx and fy, cy at ds = 1
+    out = {}
+
+    # ---- (a) novel views at the full image size ----
+    view = 0
+    inputs = data.get(0, view_idx=view)[:4]
+    render_novel_view(model, *inputs, view, K_full, Wf, Hf)  # warm-up
+    torch.cuda.synchronize()
+    K.composite_instances.launches = 0
+    t0 = time.perf_counter()
+    views = render_turntable(model, *inputs, view, K_full, Wf, Hf,
+                             n_steps=NOVEL_VIEWS)
+    turntable_ms = 1e3 * (time.perf_counter() - t0)
+    launches_nv = K.composite_instances.launches
+    view_ms = []
+    for k in range(NOVEL_VIEWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_novel_view(model, *inputs, view, K_full, Wf, Hf,
+                          angle_offset=2 * np.pi * k / NOVEL_VIEWS)
+        torch.cuda.synchronize()
+        view_ms.append(1e3 * (time.perf_counter() - t0))
+    fg = (views.min(-1) < 0.9).sum(axis=(1, 2))
+    print(f"[viz_eval] render_turntable: {NOVEL_VIEWS} views of {Wf}x{Hf} "
+          f"in {turntable_ms:.1f} ms, composite_fwd launches {launches_nv}; "
+          f"a view timed alone (host clock, synchronised): "
+          f"{', '.join(f'{x:.2f}' for x in view_ms)} ms, median "
+          f"{np.median(view_ms):.2f}; foreground pixels a view {fg.tolist()}",
+          flush=True)
+    if launches_nv != NOVEL_VIEWS:
+        raise AssertionError(f"[viz_eval] {launches_nv} composite_fwd launches "
+                             f"for {NOVEL_VIEWS} novel views")
+    if views.shape != (NOVEL_VIEWS, Hf, Wf, 3) or not (
+            np.isfinite(views).all() and fg.min() > 1000):
+        raise AssertionError("[viz_eval] a novel view is empty or not finite")
+
+    with stages.record() as rec:
+        render_novel_view(model, *inputs, view, K_full, Wf, Hf)
+    names = ("carve", "unets", "select_head", "binning", "kernel", "untile")
+    spans = {n: rec.spans[n][0] for n in names}
+    b = rec.values["binning"][0]
+    kept, dropped = int(b.counts.long().sum()), int(b.overflow)
+    args = (b.inst, b.astarts, b.counts, b.origins, R.DEFAULT_TILE,
+            R.DEFAULT_CHUNK, "conic")
+    rgb_t, alpha_t, jstop, tb = K.composite_instances(*args, save_tbounds=True)
+    ref = K.composite_instances_ref(*args, save_tbounds=True)
+    err = max(float((rgb_t - ref[0]).abs().max()),
+              float((alpha_t - ref[1]).abs().max()))
+    tb_err = float((tb - ref[3]).abs().max())
+    if not torch.equal(jstop, ref[2]):
+        raise AssertionError("[viz_eval] jstop differs on the novel view")
+    ms = cuda_ms(lambda: K.composite_instances(*args), iters=20, warmup=2)
+    plain_ms = cuda_ms(lambda: K.composite_instances_ref(*args), iters=2)
+    bound = kernel_bound(b.astarts, b.counts, jstop, R.DEFAULT_TILE,
+                         R.DEFAULT_CHUNK)
+    print(f"[viz_eval] one novel view's stages (each mark synchronising): "
+          + " ".join(f"{'composite_fwd' if n == 'kernel' else n} "
+                     f"{spans[n]:.2f}" for n in names)
+          + f" ms | instance rows kept {kept}, dropped {dropped} (the "
+          f"reference's per-camera cap 4N + T*G) | composite_fwd (conic) on "
+          f"its arrays ({b.counts.numel()} tiles, {bound['busy_tiles']} busy, "
+          f"{bound['walked_rows']} rows walked): max|kernel-plain| {err:.3g}, "
+          f"tbounds {tb_err:.3g} (tol {TOL}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})", flush=True)
+    if not (err <= TOL and tb_err <= TOL):
+        raise AssertionError(f"[viz_eval] the novel view's kernel disagrees "
+                             f"({err}, {tb_err})")
+    out["novel_view"] = dict(
+        width=Wf, height=Hf, views=NOVEL_VIEWS, launches=launches_nv,
+        turntable_ms=turntable_ms, view_ms=view_ms,
+        ms_a_view=float(np.median(view_ms)), foreground=fg.tolist(),
+        stages_ms=spans, rows_kept=kept, rows_dropped=dropped,
+        kernel=dict(max_abs_err=max(err, tb_err), ms=ms, plain_ms=plain_ms,
+                    **bound))
+    del rec, b, args, rgb_t, alpha_t, jstop, tb, ref, views
+
+    # ---- (b) the evaluation's metrics and LPIPS, card against CPU ----
+    t0 = time.perf_counter()
+    pred = render_images_in_memory(model, data)
+    render_ms = 1e3 * (time.perf_counter() - t0)
+    gt = np.round(frames["img"] * 255).astype(np.uint8)
+    path = str(out_dir / "lpips_random.npz")
+    rng = np.random.default_rng(7)
+    w, cin = {}, 3
+    for i, (f, k, _, _) in enumerate(_ALEX_CFG):
+        w[f"conv{i}_kernel"] = rng.normal(0, (cin * k * k) ** -0.5,
+                                          (k, k, cin, f)).astype(np.float32)
+        w[f"conv{i}_bias"] = rng.normal(0, 0.1, f).astype(np.float32)
+        w[f"lin{i}"] = rng.uniform(0, 1, f).astype(np.float32)
+        cin = f
+    np.savez(path, **w)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        lp = create_lpips(path, d)
+        t0 = time.perf_counter()
+        m = image_metrics(pred, gt, split="test", device=d)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m["lpips"] = lpips_metric(pred, gt, lp, split="test", device=d)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        runs[d] = dict(metrics=m, metrics_ms=1e3 * (t1 - t0),
+                       lpips_ms=1e3 * (time.perf_counter() - t1))
+    rel = {k: float(np.max(np.abs(runs["cuda"]["metrics"][k] - v)
+                           / np.maximum(np.abs(v), 1e-30)))
+           for k, v in runs["cpu"]["metrics"].items()}
+    print(f"[viz_eval] evaluation of {pred.shape[0]} frames x {pred.shape[1]} "
+          f"views at {W3}x{H3}: render_images_in_memory {render_ms:.1f} ms; "
+          f"test-split metrics on the card {runs['cuda']['metrics_ms']:.1f} ms "
+          f"(CPU {runs['cpu']['metrics_ms']:.1f}), LPIPS "
+          f"{runs['cuda']['lpips_ms']:.1f} ms (CPU "
+          f"{runs['cpu']['lpips_ms']:.1f}); card means "
+          + ", ".join(f"{k} {float(np.mean(v)):.6f}"
+                      for k, v in runs["cuda"]["metrics"].items())
+          + "; card vs CPU relative "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" (rtol {EVAL_RTOL})", flush=True)
+    if not (max(rel.values()) <= EVAL_RTOL and pred[..., 3].max() > 128):
+        raise AssertionError(f"[viz_eval] the metrics on the card disagree "
+                             f"with the CPU ({rel})")
+    out["evaluation"] = dict(frames=int(pred.shape[0]), render_ms=render_ms,
+                             card={k: v.tolist() for k, v in
+                                   runs["cuda"]["metrics"].items()},
+                             rel_err=rel, **{f"{d}_{k}": runs[d][k]
+                                             for d in runs for k in
+                                             ("metrics_ms", "lpips_ms")})
+    del pred
+
+    # ---- (c) the export, card against a CPU twin of the model ----
+    cpu_model = build_model(config, device="cpu", cameras=(Ks, Es))
+    cpu_model.net.load_state_dict(model.net.state_dict())
+    selected, got = {}, {}
+    for name, mdl in (("cuda", model), ("cpu", cpu_model)):
+        t0 = time.perf_counter()
+        got[name] = extract_world_gaussians(mdl, *inputs)
+        got[name + "_ms"] = 1e3 * (time.perf_counter() - t0)
+        # The voxels that selection picked, in the export's order.
+        with torch.no_grad():
+            g, indices = mdl.frame_gaussians(*inputs)
+        mdl.check_selection()
+        selected[name] = indices[g["valid"]].cpu().numpy()
+    n_card, n_cpu = len(got["cuda"]["means"]), len(got["cpu"]["means"])
+    common, ic, ip = np.intersect1d(selected["cuda"], selected["cpu"],
+                                    return_indices=True)
+    errs = {}
+    for k in ("means", "quaternions", "scales", "opacities", "colors"):
+        a, c = got["cuda"][k][ic], got["cpu"][k][ip]
+        errs[k] = float(np.abs(a - c).max() / np.abs(c).max())
+    errs["center"] = float(np.abs(got["cuda"]["center"] - got["cpu"]["center"]
+                                  ).max() / np.abs(got["cpu"]["center"]).max())
+    written = {}
+    for fmt, saver in SAVERS.items():
+        fn = str(out_dir / f"gaussians_{fmt}.{EXTENSIONS[fmt]}")
+        saver(got["cuda"], fn)
+        written[fmt] = Path(fn).stat().st_size
+    back = np.load(out_dir / "gaussians_npz.npz", allow_pickle=True)
+    reloaded = all(np.array_equal(back[k], got["cuda"][k]) for k in
+                   ("means", "quaternions", "scales", "opacities", "colors",
+                    "center"))
+    print(f"[viz_eval] extract_world_gaussians: card {n_card} Gaussians in "
+          f"{got['cuda_ms']:.1f} ms, CPU {n_cpu} in {got['cpu_ms']:.1f} ms; "
+          f"{len(common)} voxels selected by both, same order "
+          f"{bool(np.array_equal(ic, ip))}; card vs CPU (of each array's "
+          f"largest) " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {EXPORT_TOL}); files {written} bytes, npz read back "
+          f"{reloaded}", flush=True)
+    if not (n_card == n_cpu == len(common) and max(errs.values()) <= EXPORT_TOL
+            and reloaded and min(written.values()) > 0):
+        raise AssertionError("[viz_eval] the export on the card disagrees "
+                             "with the CPU")
+    out["export"] = dict(gaussians=n_card, common=int(len(common)),
+                         same_order=bool(np.array_equal(ic, ip)),
+                         rel_err=errs, card_ms=got["cuda_ms"],
+                         cpu_ms=got["cpu_ms"], bytes=written)
+    del cpu_model, got
+
+    # ---- (d) profile_model and a trace on the 2D north star ----
+    model2 = trained2["state"].model
+    inputs2 = FrameSet(trained2["frames"], trained2["observed"]).get(
+        0, view_idx=0)[:4]
+    K.composite_instances.launches = 0
+    K.composite_instances_bwd.launches = 0
+    prof = profile_model(model2, *inputs2, iters=PROFILE_ITERS)
+    torch.cuda.synchronize()
+    launches_prof = dict(composite_fwd=K.composite_instances.launches,
+                         composite_bwd=K.composite_instances_bwd.launches)
+    calls = PROFILE_ITERS + 2  # time_fn's warm-up calls included
+    print(f"[viz_eval] profile_model (2D north star, 2D train phase's "
+          f"weights, {PROFILE_ITERS} iterations): "
+          + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                        for k, v in prof.items()})
+          + f"; launches {launches_prof} ({calls} full_fwd_bwd calls)",
+          flush=True)
+    if launches_prof != dict(composite_fwd=3 * calls, composite_bwd=calls):
+        raise AssertionError(f"[viz_eval] profile_model launched "
+                             f"{launches_prof}")
+    trace_dir = out_dir / "trace"
+    for old in trace_dir.glob("*.json") if trace_dir.exists() else []:
+        old.unlink()
+    with trace(str(trace_dir)):
+        fwd_bwd(model2, *inputs2)
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    text = files[0].read_text() if len(files) == 1 else ""
+    seen = {c: c in text for c in ("fwd_sum", "bwd_grad")}
+    print(f"[viz_eval] trace of one fwd_bwd: {[f.name for f in files]}, "
+          f"{len(text)} bytes, compositor kernels named in it {seen}",
+          flush=True)
+    if not text:
+        raise AssertionError("[viz_eval] the trace is missing or empty")
+    out["profile"] = dict(report=prof, launches=launches_prof,
+                          trace_bytes=len(text), trace_kernels=seen)
+    report["viz_eval_phase"] = out
+    return out
+
+
 def _leaves(tree):
     """The numpy leaves of a nested dict / tuple tree, in order."""
     if isinstance(tree, dict):
@@ -2643,6 +2942,7 @@ def main(argv=None) -> int:
         run("remat2d", remat2d_phase, card, later)
         run("bridge", bridge_phase, res["train2d"][2])
         run("preprocess", preprocess_phase, res["train3d"][2])
+        run("viz_eval", viz_eval_phase, res["train3d"][2], res["train2d"][2])
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -2664,6 +2964,8 @@ def main(argv=None) -> int:
     bench_lines = res["bench"]
     cap, ad3, rm2 = res["carve_cap"], res["adaptive3d"], res["remat2d"]
     vf = res["preprocess"]["kernel"]
+    nv, nv_prof = (res["viz_eval"]["novel_view"],
+                   res["viz_eval"]["profile"]["launches"])
 
     def bench_launches(kernel):
         return {f"launches_bench_{m}": bench_lines[f"{m}_kernel"]["launches"][
@@ -2675,7 +2977,7 @@ def main(argv=None) -> int:
         bench_lines[f"{m}_kernel"]["kernels"]["fwd_max_abs_err"]
         for m in ("3d", "2d")] + [
         ad3["kernels"]["fwd_max_abs_err"], rm2["kernels"]["fwd_max_abs_err"],
-        vf["max_abs_err"]]
+        vf["max_abs_err"], nv["kernel"]["max_abs_err"]]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
         tk["max_abs_err"], t3["max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["bwd_max_abs_err"]
@@ -2717,7 +3019,13 @@ def main(argv=None) -> int:
              ms_visual_features=vf["ms"],
              plain_ms_visual_features=vf["plain_ms"],
              bound_ms_visual_features=vf["bound_ms"],
-             bound_by_visual_features=vf["bound_by"]),
+             bound_by_visual_features=vf["bound_by"],
+             launches_novel_view=nv["launches"],
+             ms_novel_view=nv["kernel"]["ms"],
+             plain_ms_novel_view=nv["kernel"]["plain_ms"],
+             bound_ms_novel_view=nv["kernel"]["bound_ms"],
+             bound_by_novel_view=nv["kernel"]["bound_by"],
+             launches_profile=nv_prof["composite_fwd"]),
         dict(name="composite_bwd", route="cuda",
              source="pose_splatter_torch/csrc/composite_bwd.cu",
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",
@@ -2732,7 +3040,8 @@ def main(argv=None) -> int:
              library_ms=None, ms_3d_train=t3["ms"],
              plain_ms_3d_train=t3["plain_ms"], bound_ms_3d_train=t3["bound_ms"],
              bound_by_3d_train=t3["bound_by"],
-             cuda_launches_a_call=tk["split"]["launches_per_call"]),
+             cuda_launches_a_call=tk["split"]["launches_per_call"],
+             launches_profile=nv_prof["composite_bwd"]),
         *gather_rows]}
     report["result"] = kernels
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -15,7 +15,13 @@ the renderer facade, the carve's visibility cap, the adaptive camera,
 and ``scripts/synthetic_benchmark.py``, and preprocessing
 (``preprocess/``, ``tracking.py``, ``scripts/preprocess.py``: the
 center/rotation and crop carves on the device, the visual-pose features
-through ResNet18 in ``models/resnet.py``) with LPIPS (``ops/lpips.py``).
+through ResNet18 in ``models/resnet.py``) with LPIPS (``ops/lpips.py``),
+and the output layer: the evaluation's metrics (``train/evaluate.py``),
+novel views, export and plots (``viz/``), profiling and log analysis
+(``utils/profiling.py``, ``utils/loganalysis.py``) and the user CLIs
+(``scripts/train.py``, ``evaluate.py``, ``render_image.py``,
+``generate_videos.py``, ``export_gaussians.py``, ``visualize.py``,
+``profile.py``, ``analyze_convergence.py``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise instead of running on the CPU.

@@ -497,13 +497,35 @@ class PoseSplatter(nn.Module):
             visibility_cap=self.carve_visibility_cap)
 
     # ------------------------------------------------------------------
-    def gaussians_from_volume(self, vol_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """vol_flat [out_ch, N] → dict of Gaussian parameters: world-space
-        in 3D mode (``pose_splatter.py:397-414``), pixel-space in 2D."""
+    def frame_gaussians(self, mask, img, center, angle, K_mask=None,
+                        new_stats=None):
+        """Carve → U-Nets → Gaussian head for one frame, the carve grid at
+        ``center``: the head's Gaussians (:meth:`gaussians_from_volume`, not
+        yet posed) and the flat indices [max_n] of the voxels selected for
+        them (``valid`` marks the real ones). ``new_stats`` as in
+        :meth:`PoseSplatterNet.process_volume`. Marks the stages "carve"
+        and "unets"."""
+        volume = self.carve(mask, img, center, angle, K_mask)  # [4,n1,n2,n3]
+        stages.mark("carve")
+        vol_flat = self.net.process_volume(volume.permute(1, 2, 3, 0)[None],
+                                           new_stats)
+        stages.mark("unets")
+        sel = self._select(vol_flat)
+        return self._gaussians_from_selection(vol_flat, sel), sel.indices
+
+    def _select(self, vol_flat: torch.Tensor):
         sel = select_gaussians(
             vol_flat[0], self.min_n, self.max_n, self.prob_threshold,
             self.mask_threshold, self.mask_threshold_delta)
         self.selection_miss.logical_or_(sel.table_miss)
+        return sel
+
+    def gaussians_from_volume(self, vol_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """vol_flat [out_ch, N] → dict of Gaussian parameters: world-space
+        in 3D mode (``pose_splatter.py:397-414``), pixel-space in 2D."""
+        return self._gaussians_from_selection(vol_flat, self._select(vol_flat))
+
+    def _gaussians_from_selection(self, vol_flat, sel) -> Dict[str, torch.Tensor]:
         feats = take_rows_unique(vol_flat.T, sel.indices)  # [max_n, out_ch]
         net_out = self.net.gaussian_head(feats)
 
@@ -629,12 +651,8 @@ class PoseSplatter(nn.Module):
     def _forward(self, mask, img, p_3d, angle, view_idx, new_stats,
                  K_mask=None, carve_center=None):
         center = p_3d if carve_center is None else carve_center
-        volume = self.carve(mask, img, center, angle, K_mask)  # [4,n1,n2,n3]
-        stages.mark("carve")
-        vol_flat = self.net.process_volume(volume.permute(1, 2, 3, 0)[None],
-                                           new_stats)
-        stages.mark("unets")
-        g = self.gaussians_from_volume(vol_flat)
+        g, _ = self.frame_gaussians(mask, img, center, angle, K_mask,
+                                    new_stats)
         if self.gaussian_mode == "3d":
             g = self.apply_pose_transform_3d(g, angle, p_3d)
         elif "anchor_means" in g:

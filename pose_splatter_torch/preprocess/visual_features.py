@@ -110,11 +110,7 @@ def make_frame_features(
 
     @torch.no_grad()
     def frame_features(mask, img, p_3d, angle, theta) -> torch.Tensor:
-        volume = model.carve(mask, img, p_3d, angle)
-        stages.mark("carve")
-        vol_flat = model.net.process_volume(volume.permute(1, 2, 3, 0)[None])
-        stages.mark("unets")
-        g = model.gaussians_from_volume(vol_flat)
+        g, _ = model.frame_gaussians(mask, img, p_3d, angle)
         stages.mark("select_head", g)
         means = g["means"] - g["means"].mean(dim=0, keepdim=True)
         means = means @ yaw_rotation(theta, device=dev).T

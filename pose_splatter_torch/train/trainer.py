@@ -2,10 +2,9 @@
 ``pose_splatter_tpu/train/trainer.py``): ``build_model`` and
 ``train_from_config``, the reference's ``train_script.py`` loop over the
 train step: per-epoch training over shuffled frames, validation every
-``valid_every`` epochs, checkpoints every ``save_every``, ``load`` to resume.
-
-Not ported yet: the plots (the JAX trainer skips them when their import
-fails; here they are always skipped until viz is ported).
+``valid_every`` epochs, GT/prediction and loss-curve plots every
+``plot_every`` (skipped where matplotlib is missing, as in the JAX
+trainer), checkpoints every ``save_every``, ``load`` to resume.
 """
 
 from __future__ import annotations
@@ -137,9 +136,16 @@ def train_from_config(
     device: Union[str, torch.device] = "cuda",
     cameras: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     datasets: Optional[Sequence] = None,
+    make_plots: bool = True,
+    progress: bool = True,
 ):
     """Run training (``trainer.py:114-249``); returns (state, losses,
     validation_losses).
+
+    ``make_plots`` writes ``reconstruction.pdf`` and ``loss.pdf`` (with an
+    ``_ablation`` suffix when ablating) into the project directory every
+    ``plot_every`` epochs, where matplotlib is installed; ``progress``
+    prints each epoch's losses and the validation loss.
 
     ``cameras`` = (intrinsics [C,3,3], extrinsics [C,4,4]) and ``datasets``
     = (train, valid) replace the config's camera and image files (any
@@ -211,8 +217,9 @@ def train_from_config(
         else:
             avg = [0.0 for _ in LOSS_NAMES]
         losses.append(avg)
-        print(f"epoch {epoch}: " +
-              " ".join(f"{k}={v:.5f}" for k, v in zip(LOSS_NAMES, avg)))
+        if progress:
+            print(f"epoch {epoch}: " +
+                  " ".join(f"{k}={v:.5f}" for k, v in zip(LOSS_NAMES, avg)))
 
         if epoch % config.valid_every == 0:
             vlosses = []
@@ -223,7 +230,25 @@ def train_from_config(
                     break
             validation_losses.append(
                 float(torch.stack(vlosses).mean()) if vlosses else 0.0)
-            print(f"  validation: {validation_losses[-1]:.5f}")
+            if progress:
+                print(f"  validation: {validation_losses[-1]:.5f}")
+
+        if make_plots and epoch % config.plot_every == 0:
+            try:
+                from pose_splatter_torch.viz.plots import (
+                    plot_losses,
+                    plot_predictions,
+                )
+
+                suffix = "_ablation" if ablation else ""
+                os.makedirs(config.project_directory, exist_ok=True)
+                plot_predictions(model, train_ds, save_path=os.path.join(
+                    config.project_directory, f"reconstruction{suffix}.pdf"))
+                plot_losses(losses, validation_losses, config.valid_every,
+                            save_path=os.path.join(config.project_directory,
+                                                   f"loss{suffix}.pdf"))
+            except ImportError:
+                pass
 
         if epoch % config.save_every == 0:
             save_checkpoint(ckpt_fn, state, extra={
