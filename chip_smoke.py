@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gather-only
+    python3 chip_smoke.py --record
 
 Builds every CUDA kernel of the port from the sources in the checkout
-(``nvcc``, one process a source, all at once; it fails if ptxas reports a
-spill), then:
+(``nvcc``, one process a source, and ``g++`` for the native frame decode,
+all at once; it fails if a build fails or ptxas reports a spill), then:
 
 1. card: prints the GPU's name and power limit and the build time;
 2. dyngather: the probe entry point (``pose_splatter_torch.scripts.
@@ -77,7 +78,24 @@ spill), then:
 10. synth: ``python -m pose_splatter_torch.scripts.synthetic_benchmark`` at
    ``SYNTH_BENCH.json``'s shape (576x512, grid 128, crop 96x80x64, 6
    cameras, view-anchored 2D) for 64 steps, 8 a call, with the per-camera
-   evaluation: its report printed and checked;
+   evaluation: its report printed and checked, its state saved;
+10a. temporal: ``python -m pose_splatter_torch.scripts.temporal_benchmark``
+   on the synth phase's state: (a) its default mode over 600 frames (cut
+   from 3600), the held-out PSNR against the synth phase's, the
+   forward-kernel launches (one a frame) and the kernel against its plain
+   version on a sequence frame's binned arrays; (b) its end-to-end loop
+   (``run_sequence``) over 600 frames through ``FrameDataset`` and the
+   native decode, from ``images.h5`` where h5py exists and else from a
+   uint8 array in memory, PNGs where PIL exists, an MP4 where ffmpeg does,
+   the ``mode`` string naming what was paid; (c) the card's busy share
+   over 16 sequence frames (phase 17);
+10b. input: ``python -m pose_splatter_torch.scripts.dbg_input_pipeline``'s
+   measurement at its full width (48 frames, 30 steps, 4 loader threads;
+   the frames stored as in (b)): loader alone, eager step alone, the two
+   overlapped, both compositors' launches, a frame's decode native against
+   NumPy;
+10c. doctor: ``python -m pose_splatter_torch.scripts.doctor`` in a
+   subprocess exits 0;
 11. carve_cap: ``carve_volume`` at the 2D north star's crop (491,520
    voxels): the occupied counts, the carve timed exact, with a cap that
    fits and with the cap N/8 = 61,440 (host-launched, and on the device by
@@ -124,8 +142,16 @@ spill), then:
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
    card's busy share of one more train step in each mode, of a K-step
-   call beside an eager step, and of a bench-shape fwd+bwd
-   (``device_busy``).
+   call beside an eager step, of a bench-shape fwd+bwd and of 16
+   frames of the temporal sequence (``device_busy``).
+
+``--record`` builds the compositors and the native decode and writes the
+numbers kept in the repository into ``chiprun_out/``: the synthetic
+benchmark for 3000 steps, the temporal benchmark over 3600 frames in both
+modes (``TEMPORAL_torch.json``, ``TEMPORAL_torch_e2e.json``), the busy
+share over 64 sequence frames, the input probe
+(``INPUT_PIPELINE_torch.json``) and a frame's decode, each file with the
+card's name and power limit.
 
 ``--gather-only`` builds ``dyngather.cu`` alone and runs phases 2 and 17
 for the gather. It prints the gather rows and the card, not the final
@@ -227,6 +253,17 @@ NOVEL_VIEWS = 8
 EVAL_RTOL = 1e-5
 EXPORT_TOL = 1e-5
 PROFILE_ITERS = 5
+# The temporal phase: frames of the sequence in each mode (cut from the
+# JAX script's 3600 for the run's time), frames under the profiler, the
+# rows the end-to-end loop cycles over (the JAX script's --disk-frames), and
+# how far the sequence's held-out PSNR may sit from the synth phase's
+# evaluation of the same state (report values, rounded to 0.01 dB alike).
+SEQ_FRAMES = 600
+SEQ_BUSY_FRAMES = 16
+SEQ_DISK_FRAMES = 360
+SEQ_PSNR_TOL = 1e-3
+# The input phase: the probe's own defaults.
+INPUT_FRAMES, INPUT_STEPS, INPUT_WORKERS = 48, 30, 4
 
 
 def card_line() -> str:
@@ -1802,12 +1839,14 @@ SYNTH_ARGS = ["--width", "576", "--height", "512", "--grid", "128",
               "--anchored", "--radii", "0.065,0.032,0.028", "--min-n", "1024",
               "--max-n", "16000", "--per-camera"]
 SYNTH_STEPS = 64
+SYNTH_STATE = ROOT / "build" / "synth_state.pt"
 
 
 def synth_phase(report):
     """``python -m pose_splatter_torch.scripts.synthetic_benchmark`` at
     SYNTH_BENCH.json's shape for SYNTH_STEPS steps, 8 a call: its report,
-    checked for the JAX script's keys and finite metrics."""
+    checked for the JAX script's keys and finite metrics. Its state goes to
+    SYNTH_STATE (``--save-state``) for the temporal phase."""
     import torch
 
     from pose_splatter_torch.ops import rasterize_kernels as K
@@ -1815,8 +1854,10 @@ def synth_phase(report):
 
     K.composite_instances.launches = 0
     K.composite_instances_bwd.launches = 0
+    SYNTH_STATE.parent.mkdir(parents=True, exist_ok=True)
     out = sb.main(SYNTH_ARGS + ["--steps", str(SYNTH_STEPS),
-                                "--steps-per-call", "8"])
+                                "--steps-per-call", "8",
+                                "--save-state", str(SYNTH_STATE)])
     # The warm-up steps and the capture pass through the wrappers, the
     # replays do not; the evaluation's forwards do.
     launches = dict(composite_fwd=K.composite_instances.launches,
@@ -1841,6 +1882,388 @@ def synth_phase(report):
         raise AssertionError(f"the synthetic run launched {launches}")
     report["synth_phase"] = dict(out, launches_through_wrappers=launches)
     return out
+
+
+# ----------------------------------------------------------------------------
+# Serving a long recording and its input side: the temporal benchmark, the
+# input-pipeline probe and the environment check-up.
+# ----------------------------------------------------------------------------
+
+def boundaries():
+    """What this machine can pay of the end-to-end boundaries: the
+    storage of the frames (``images.h5`` needs h5py), PNGs (PIL) and the
+    MP4 mux (ffmpeg), and the words that name them."""
+    import importlib.util
+    import shutil
+
+    h5 = importlib.util.find_spec("h5py") is not None
+    png = importlib.util.find_spec("PIL") is not None
+    mp4 = shutil.which("ffmpeg") is not None
+    words = (("disk reads (FrameDataset/images.h5)" if h5 else
+              "memory reads (FrameDataset over a uint8 array; h5py absent)")
+             + (" + PNG writer pool" if png else " (PIL absent: no PNG)")
+             + (" + mp4" if mp4 else " (ffmpeg absent: no mp4)"))
+    return dict(h5=h5, png=png, mp4=mp4, mode=words)
+
+
+def frame_dataset(root, images, poses, C, holdout, split):
+    """The port's ``FrameDataset`` over uint8 frames ``images`` [T,C,H,W,3]
+    and ``poses`` (centers, angles): read from ``images.h5`` under ``root``
+    where h5py exists, else from the array in memory through a subclass
+    that keeps every other method, the decode included."""
+    from pose_splatter_torch.data.dataset import FrameDataset
+
+    if boundaries()["h5"]:
+        import h5py
+
+        img_fn, cr_fn = str(root / "images.h5"), str(root / "poses.npz")
+        with h5py.File(img_fn, "w") as f:
+            d = f.create_dataset("images", images.shape, dtype="u1",
+                                 chunks=(1, 1) + images.shape[2:])
+            for t in range(len(images)):
+                d[t] = images[t]
+        np.savez(cr_fn, **poses)
+        return FrameDataset(img_fn, cr_fn, C, holdout_views=[holdout],
+                            split=split)
+
+    class MemoryFrameDataset(FrameDataset):
+        """``FrameDataset`` over an array in memory (no h5py here)."""
+
+        def __init__(self):
+            self.split, self.C = split, C
+            self.observed_views = np.array(
+                [i for i in range(C) if i != holdout], dtype=int)
+            self._rng = np.random.default_rng(0)
+            self.images = images
+            T = len(images)
+            self.i1, self.i2 = {"train": (0, T // 3), "all": (0, T)}[split]
+            self.angles, self.centers = poses["angles"], poses["centers"]
+
+    return MemoryFrameDataset()
+
+
+def sequence_end_to_end(model, sc, frames, centers, angles, length, out_dir):
+    """The temporal benchmark's ``--end-to-end`` loop (``run_sequence``)
+    over ``length`` frames with what this machine has (``boundaries``):
+    reads through ``FrameDataset`` and the native decode over SEQ_DISK_FRAMES
+    rows (the unique poses repeated), PNGs into ``out_dir`` when PIL exists,
+    the MP4 mux when ffmpeg does. Returns (seconds, the mux's seconds, the
+    mode string, the PNGs written)."""
+    import shutil
+
+    from pose_splatter_torch.data import native
+    from pose_splatter_torch.scripts import temporal_benchmark as tb
+
+    if native.route() != "native":
+        raise AssertionError("the native decode did not build")
+    pay = boundaries()
+    D, T = SEQ_DISK_FRAMES, len(frames)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    (out_dir / "frames").mkdir(parents=True)
+    reps = -(-D // T)
+    images = np.ascontiguousarray(frames[np.arange(D) % T])
+    poses = dict(centers=np.concatenate([centers] * reps)[:D],
+                 angles=np.concatenate([angles] * reps)[:D],
+                 covs=np.zeros((D, 3, 3), np.float32))
+    ds = frame_dataset(out_dir, images, poses, sc["cameras"],
+                       sc["cameras"] - 1, "all")
+    write = tb.png_writer(str(out_dir / "frames")) if pay["png"] else None
+    render_u8 = tb.make_render_u8(model, sc["cameras"] - 1)
+    elapsed = tb.run_sequence(render_u8,
+                              tb.dataset_reader(ds, D, model.device),
+                              length, write)
+    mux_s = tb.mux(str(out_dir / "frames"), str(out_dir / "sequence.mp4"))
+    pngs = sorted((out_dir / "frames").glob("*.png"))
+    return elapsed, mux_s, pay["mode"], pngs
+
+
+def sequence_model():
+    """The synth run's model (SYNTH_STATE) on the card, its scene's
+    settings and its unique poses: (model, settings, frames, centers,
+    angles)."""
+    from pose_splatter_torch.scripts import synthetic_benchmark as sb
+    from pose_splatter_torch.scripts import temporal_benchmark as tb
+
+    model, sc = tb.load_state(str(SYNTH_STATE), "cuda")
+    _, _, frames, centers, angles = sb.make_scene(
+        sc["cameras"], sc["height"], sc["width"], T=sc["frames"],
+        radii=tuple(sc["radii"]))
+    return model, sc, frames, centers, angles
+
+
+def input_dataset():
+    """The input probe's INPUT_FRAMES frames as its train split, stored as
+    ``boundaries`` allows, and the frames."""
+    from pose_splatter_torch.scripts import dbg_input_pipeline as ip
+
+    root = ROOT / "build" / "input"
+    root.mkdir(parents=True, exist_ok=True)
+    images = np.stack(list(ip.make_frames(INPUT_FRAMES)))
+    ds = frame_dataset(root, images, ip.make_poses(INPUT_FRAMES), ip.C,
+                       ip.C - 1, "train")
+    return ds, images
+
+
+def temporal_phase(report, later):
+    """The temporal benchmark on the synth phase's state (SYNTH_STATE,
+    SYNTH_BENCH.json's shape: 576x512, grid 128, crop 96x80x64, C = 6,
+    view-anchored 2D). (a) ``python -m pose_splatter_torch.scripts.
+    temporal_benchmark``'s default mode over SEQ_FRAMES frames (cut from
+    3600 for the run's time) through its ``main``: the report with the JAX
+    script's keys and ``decode``, the held-out PSNR within SEQ_PSNR_TOL dB
+    of the synth phase's evaluation of the same state, the forward-kernel
+    launches read around it equal to the frames rendered (the quality pass's
+    unique poses and the sequence); then the forward kernel against its
+    plain version on one sequence frame's binned arrays (TOL), its ms and
+    bound. (b) The ``--end-to-end`` loop (``run_sequence``) over SEQ_FRAMES
+    frames with what the machine has (``sequence_end_to_end``): one launch a
+    frame, every PNG written, a PNG within one level of the default mode's
+    uint8 render of its frame (the reads decode natively, one ulp from the
+    staged payloads). (c) The card's busy share over SEQ_BUSY_FRAMES
+    sequence frames (``device_busy``), appended to ``later``."""
+    import torch
+
+    from pose_splatter_torch.ops import rasterize as R
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.scripts import temporal_benchmark as tb
+    from pose_splatter_torch.utils import stages
+
+    synth = report["synth_phase"]
+    K.composite_instances.launches = 0
+    rep = tb.main(["--state", str(SYNTH_STATE), "--length", str(SEQ_FRAMES)])
+    launches = K.composite_instances.launches
+    model, sc, frames, centers, angles = sequence_model()
+    expected = sc["frames"] + SEQ_FRAMES
+    print(f"[temporal] default mode, {SEQ_FRAMES} frames: {json.dumps(rep)}; "
+          f"composite_fwd launches {launches} (expected {expected}: "
+          f"{sc['frames']} quality-pass frames and the sequence)", flush=True)
+    keys = set(tb.make_report(sc, "", 1, 1.0, None, dict(
+        psnr=0, ssim=0, iou=0, lpips=None, lpips_gate=None), "cuda", ""))
+    if set(rep) != keys or rep["backend"] != "cuda" or rep["decode"] != "numpy":
+        raise AssertionError(f"[temporal] report {rep}")
+    if abs(rep["holdout_psnr_db"] - synth["holdout_psnr_db"]) > SEQ_PSNR_TOL:
+        raise AssertionError(
+            f"[temporal] held-out PSNR {rep['holdout_psnr_db']} against the "
+            f"synth phase's {synth['holdout_psnr_db']}")
+    if launches != expected:
+        raise AssertionError(f"[temporal] {launches} composite_fwd launches")
+
+    read = tb.staged_reader(model, frames, centers, angles)
+    render_u8 = tb.make_render_u8(model, sc["cameras"] - 1)
+    with stages.record() as rec:
+        ref_u8 = render_u8(*read(0)).cpu().numpy()
+    b = rec.values["binning"][0]
+    args = (b.inst, b.astarts, b.counts, b.origins, R.DEFAULT_TILE,
+            R.DEFAULT_CHUNK, "ellipse")
+    rgb_t, alpha_t, jstop = K.composite_instances(*args)
+    ref = K.composite_instances_ref(*args)
+    err = max(float((rgb_t - ref[0]).abs().max()),
+              float((alpha_t - ref[1]).abs().max()))
+    if not torch.equal(jstop, ref[2]):
+        raise AssertionError("[temporal] jstop differs on a sequence frame")
+    ms = cuda_ms(lambda: K.composite_instances(*args), iters=20, warmup=2)
+    plain_ms = cuda_ms(lambda: K.composite_instances_ref(*args), iters=2)
+    bound = kernel_bound(b.astarts, b.counts, jstop, R.DEFAULT_TILE,
+                         R.DEFAULT_CHUNK)
+    stage_ms = {n: round(v[0], 3) for n, v in rec.spans.items()}
+    print(f"[temporal] one sequence frame's stages {stage_ms} ms | "
+          f"composite_fwd (ellipse) on its arrays ({b.counts.numel()} tiles, "
+          f"{bound['busy_tiles']} busy): max|kernel-plain| {err:.3g} (tol "
+          f"{TOL}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+    if not err <= TOL:
+        raise AssertionError(f"[temporal] the kernel disagrees ({err})")
+
+    # ---- (b) the end-to-end loop ----
+    K.composite_instances.launches = 0
+    elapsed, mux_s, mode, pngs = sequence_end_to_end(
+        model, sc, frames, centers, angles, SEQ_FRAMES,
+        ROOT / "build" / "temporal")
+    e2e_launches = K.composite_instances.launches
+    q = dict(psnr=rep["holdout_psnr_db"], ssim=rep["holdout_ssim"],
+             iou=rep["holdout_iou"], lpips=rep["lpips"],
+             lpips_gate=rep["lpips_gate"])
+    from pose_splatter_torch.data import native
+
+    e2e = tb.make_report(sc, mode, SEQ_FRAMES, elapsed, mux_s, q, "cuda",
+                         native.route())
+    png_diff = None
+    if boundaries()["png"]:
+        from PIL import Image
+
+        if len(pngs) != SEQ_FRAMES:
+            raise AssertionError(f"[temporal] {len(pngs)} PNGs written")
+        got = np.asarray(Image.open(pngs[0]))
+        d = np.abs(got.astype(int) - ref_u8.astype(int))
+        png_diff = dict(max=int(d.max()), share=float((d > 0).mean()))
+        if got.shape != ref_u8.shape or d.max() > 1:
+            raise AssertionError(f"[temporal] frame 0's PNG {png_diff}")
+    print(f"[temporal] end to end, {SEQ_FRAMES} frames: {json.dumps(e2e)}; "
+          f"composite_fwd launches {e2e_launches}; {len(pngs)} PNGs, frame "
+          f"0's against the default mode's uint8 render: {png_diff}",
+          flush=True)
+    if e2e_launches != SEQ_FRAMES:
+        raise AssertionError(f"[temporal] {e2e_launches} launches end to end")
+
+    out = dict(default=rep, launches=launches, end_to_end=e2e,
+               launches_e2e=e2e_launches, png_vs_render=png_diff,
+               stages_ms=stage_ms, kernel=dict(max_abs_err=err, ms=ms,
+                                               plain_ms=plain_ms, **bound))
+
+    def busy():
+        b = device_busy(lambda: tb.run_sequence(render_u8, read,
+                                                SEQ_BUSY_FRAMES),
+                        count=("fwd_sum",))
+        out["device_busy"] = b
+        print(f"[temporal] {SEQ_BUSY_FRAMES} sequence frames under the "
+              f"profiler: {b['wall_ms']:.1f} ms wall, {b['busy_ms']:.1f} ms "
+              f"on the card ({100 * b['busy_share']:.1f} % busy), "
+              f"{b['kernels']} device operations, forward compositors "
+              f"{b['counted']['fwd_sum']}", flush=True)
+
+    later.append(busy)
+    report["temporal_phase"] = out
+    return out
+
+
+def decode_ms(raw, reps: int = 5):
+    """ms a frame of the native decode and of the NumPy one on ``raw``
+    [C,H,W,3], alternating, best of ``reps``; and their largest difference
+    (one ulp where they differ)."""
+    from pose_splatter_torch.data import native
+
+    times = dict(native=[], numpy=[])
+    for _ in range(reps):
+        for name, fn in (("native", native.decode_frame),
+                         ("numpy", native.decode_frame_numpy)):
+            t = time.perf_counter()
+            fn(raw)
+            times[name].append(1e3 * (time.perf_counter() - t))
+    (m1, i1), (m2, i2) = native.decode_frame(raw), native.decode_frame_numpy(raw)
+    if not np.array_equal(m1, m2):
+        raise AssertionError("the native decode's mask differs from NumPy's")
+    return dict(native_ms=min(times["native"]), numpy_ms=min(times["numpy"]),
+                max_abs_diff=float(np.abs(i1 - i2).max()))
+
+
+def input_phase(report):
+    """``python -m pose_splatter_torch.scripts.dbg_input_pipeline`` at its
+    own full width (INPUT_FRAMES frames of 6 views at 576x512, grid 128,
+    INPUT_STEPS steps, INPUT_WORKERS loader threads) through its
+    ``measure``, its frames stored as ``boundaries`` allows: the loader
+    alone, the eager step alone and the two overlapped, both compositors'
+    launches read around it; and a frame's decode, native against NumPy."""
+    import torch
+
+    from pose_splatter_torch.data import native
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.scripts import dbg_input_pipeline as ip
+
+    if native.route() != "native":
+        raise AssertionError("the native decode did not build")
+    ds, images = input_dataset()
+    K.composite_instances.launches = 0
+    K.composite_instances_bwd.launches = 0
+    m = ip.measure(ds, INPUT_STEPS, INPUT_WORKERS, torch.device("cuda"))
+    launches = dict(composite_fwd=K.composite_instances.launches,
+                    composite_bwd=K.composite_instances_bwd.launches)
+    rep = ip.make_report(m, INPUT_WORKERS, "cuda")
+    dec = decode_ms(images[0])
+    storage = ("images.h5" if boundaries()["h5"]
+               else "a uint8 array in memory (h5py absent)")
+    print(f"[input] {json.dumps(rep)}; frames from {storage}; compositor "
+          f"launches {launches}; a frame's decode (6 x 512 x 576): native "
+          f"{dec['native_ms']:.3f} ms, NumPy {dec['numpy_ms']:.3f} ms, "
+          f"largest difference {dec['max_abs_diff']:.3g}", flush=True)
+    if rep["decode"] != "native" or min(launches.values()) <= 0:
+        raise AssertionError(f"[input] decode {rep['decode']}, launches "
+                             f"{launches}")
+    if not all(np.isfinite([m["data_ms"], m["step_ms"], m["overlapped_ms"]])):
+        raise AssertionError(f"[input] {m}")
+    out = dict(report=rep, storage=storage, launches=launches, decode=dec)
+    report["input_phase"] = out
+    return out
+
+
+def doctor_phase(report):
+    """``python -m pose_splatter_torch.scripts.doctor`` in a subprocess:
+    exit 0, its lines printed."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pose_splatter_torch.scripts.doctor"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"[doctor] {line}", flush=True)
+    report["doctor_phase"] = dict(rc=proc.returncode, out=proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError(f"doctor exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.returncode
+
+
+RECORD_SYNTH_STEPS, RECORD_FRAMES, RECORD_BUSY_FRAMES = 3000, 3600, 64
+
+
+def record_phase(report):
+    """The numbers kept in the repository (``--record``), into
+    ``chiprun_out/``: the synthetic benchmark at SYNTH_BENCH.json's shape
+    for RECORD_SYNTH_STEPS steps, 8 a call, its state saved
+    (``synth_record.json``); the temporal benchmark's default mode over
+    RECORD_FRAMES frames through its ``main`` (``TEMPORAL_torch.json``);
+    its end-to-end loop over RECORD_FRAMES frames with what the machine has
+    (``sequence_end_to_end``; ``TEMPORAL_torch_e2e.json``); the card's busy
+    share over RECORD_BUSY_FRAMES sequence frames; the input probe at its
+    full width (``INPUT_PIPELINE_torch.json``) and a frame's decode, native
+    against NumPy. Each file holds the card's name and power limit."""
+    import torch
+
+    from pose_splatter_torch.data import native
+    from pose_splatter_torch.scripts import dbg_input_pipeline as ip
+    from pose_splatter_torch.scripts import synthetic_benchmark as sb
+    from pose_splatter_torch.scripts import temporal_benchmark as tb
+    from pose_splatter_torch.scripts.common import write_report
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    SYNTH_STATE.parent.mkdir(parents=True, exist_ok=True)
+    synth = sb.main(SYNTH_ARGS + [
+        "--steps", str(RECORD_SYNTH_STEPS), "--steps-per-call", "8",
+        "--save-state", str(SYNTH_STATE), "--out",
+        str(out / "synth_record.json")])
+    rep = tb.main(["--state", str(SYNTH_STATE), "--length",
+                   str(RECORD_FRAMES), "--out",
+                   str(out / "TEMPORAL_torch.json")])
+    print(f"[record] synthetic held-out PSNR {synth['holdout_psnr_db']}, the "
+          f"sequence's quality pass {rep['holdout_psnr_db']}", flush=True)
+    model, sc, frames, centers, angles = sequence_model()
+    elapsed, mux_s, mode, pngs = sequence_end_to_end(
+        model, sc, frames, centers, angles, RECORD_FRAMES,
+        ROOT / "build" / "temporal_record")
+    q = dict(psnr=rep["holdout_psnr_db"], ssim=rep["holdout_ssim"],
+             iou=rep["holdout_iou"], lpips=rep["lpips"],
+             lpips_gate=rep["lpips_gate"])
+    e2e = tb.make_report(sc, mode, RECORD_FRAMES, elapsed, mux_s, q, "cuda",
+                         native.route())
+    write_report(e2e, str(out / "TEMPORAL_torch_e2e.json"), "cuda")
+    print(f"[record] end to end: {json.dumps(e2e)}; {len(pngs)} PNGs",
+          flush=True)
+    read = tb.staged_reader(model, frames, centers, angles)
+    render_u8 = tb.make_render_u8(model, sc["cameras"] - 1)
+    busy = device_busy(lambda: tb.run_sequence(render_u8, read,
+                                               RECORD_BUSY_FRAMES),
+                       count=("fwd_sum",))
+    print(f"[record] {RECORD_BUSY_FRAMES} sequence frames under the "
+          f"profiler: {json.dumps(busy)}", flush=True)
+    del model
+    ds, images = input_dataset()
+    m = ip.measure(ds, INPUT_STEPS, INPUT_WORKERS, torch.device("cuda"))
+    inp = ip.make_report(m, INPUT_WORKERS, "cuda")
+    write_report(inp, str(out / "INPUT_PIPELINE_torch.json"), "cuda")
+    dec = decode_ms(images[0])
+    print(f"[record] input probe: {json.dumps(inp)}; a frame's decode "
+          f"{json.dumps(dec)}", flush=True)
+    report.update(synth=synth, temporal=rep, temporal_e2e=e2e,
+                  device_busy=busy, input=inp, input_raw_ms=m, decode=dec)
+    return report
 
 
 # ----------------------------------------------------------------------------
@@ -2867,6 +3290,11 @@ def main(argv=None) -> int:
     ap.add_argument("--gather-only", action="store_true",
                     help="build dyngather.cu and run only the gather phase "
                          "and its profile")
+    ap.add_argument("--record", action="store_true",
+                    help="build the compositors and the native decode, and "
+                         "write the numbers kept in the repository "
+                         "(TEMPORAL_torch*.json, INPUT_PIPELINE_torch.json) "
+                         "into chiprun_out/")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2886,14 +3314,25 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
+    from pose_splatter_torch.data import native
+
     names = (("dyngather",) if args.gather_only else
+             ("composite_fwd", "composite_bwd") if args.record else
              ("composite_fwd", "composite_bwd", "dyngather"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as ex:  # one nvcc a source, at once
+    # One nvcc a source and g++ for the native decode, all at once; a failed
+    # build raises here.
+    with ThreadPoolExecutor(len(names) + 1) as ex:
+        fastio = (None if args.gather_only else ex.submit(native.build))
         libs = dict(zip(names, ex.map(_build.build, names)))
+        fastio = fastio and fastio.result()
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(n + '.cu' for n in names)} in {build_s:.1f} s "
-          f"({_build.CSRC})", flush=True)
+          f"({_build.CSRC})" + (f"; native decode {fastio}" if fastio else ""),
+          flush=True)
+    if fastio and native.route() != "native":
+        raise AssertionError(f"the native decode built ({fastio}) but does "
+                             "not load")
     for name, lib in libs.items():
         log = Path(str(lib) + ".log")
         for line in log.read_text().splitlines() if log.exists() else []:
@@ -2907,6 +3346,13 @@ def main(argv=None) -> int:
 
     report = dict(card=card, build_s=build_s, phase_s={})
     res = {}
+    if args.record:
+        report = record_phase(report)
+        report["total_s"] = time.perf_counter() - t_start
+        (ROOT / "chiprun_out" / "record.json").write_text(
+            json.dumps(report, indent=1))
+        print(card)
+        return 0
 
     def run(phase, fn, *args):
         t = time.perf_counter()
@@ -2937,6 +3383,9 @@ def main(argv=None) -> int:
         run("bench", bench_phase, card, later)
         run("tiled", tiled_phase, card)
         run("synth", synth_phase)
+        run("temporal", temporal_phase, later)
+        run("input", input_phase)
+        run("doctor", doctor_phase)
         run("carve_cap", carve_cap_phase, later)
         run("adaptive3d", adaptive3d_phase, card, later)
         run("remat2d", remat2d_phase, card, later)
@@ -2966,6 +3415,7 @@ def main(argv=None) -> int:
     vf = res["preprocess"]["kernel"]
     nv, nv_prof = (res["viz_eval"]["novel_view"],
                    res["viz_eval"]["profile"]["launches"])
+    seq, inp = res["temporal"], res["input"]
 
     def bench_launches(kernel):
         return {f"launches_bench_{m}": bench_lines[f"{m}_kernel"]["launches"][
@@ -2977,7 +3427,8 @@ def main(argv=None) -> int:
         bench_lines[f"{m}_kernel"]["kernels"]["fwd_max_abs_err"]
         for m in ("3d", "2d")] + [
         ad3["kernels"]["fwd_max_abs_err"], rm2["kernels"]["fwd_max_abs_err"],
-        vf["max_abs_err"], nv["kernel"]["max_abs_err"]]
+        vf["max_abs_err"], nv["kernel"]["max_abs_err"],
+        seq["kernel"]["max_abs_err"]]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
         tk["max_abs_err"], t3["max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["bwd_max_abs_err"]
@@ -3025,7 +3476,15 @@ def main(argv=None) -> int:
              plain_ms_novel_view=nv["kernel"]["plain_ms"],
              bound_ms_novel_view=nv["kernel"]["bound_ms"],
              bound_by_novel_view=nv["kernel"]["bound_by"],
-             launches_profile=nv_prof["composite_fwd"]),
+             launches_profile=nv_prof["composite_fwd"],
+             launches_temporal=seq["launches"],
+             launches_temporal_e2e=seq["launches_e2e"],
+             max_abs_err_temporal=seq["kernel"]["max_abs_err"],
+             ms_temporal=seq["kernel"]["ms"],
+             plain_ms_temporal=seq["kernel"]["plain_ms"],
+             bound_ms_temporal=seq["kernel"]["bound_ms"],
+             bound_by_temporal=seq["kernel"]["bound_by"],
+             launches_input=inp["launches"]["composite_fwd"]),
         dict(name="composite_bwd", route="cuda",
              source="pose_splatter_torch/csrc/composite_bwd.cu",
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",
@@ -3041,7 +3500,8 @@ def main(argv=None) -> int:
              plain_ms_3d_train=t3["plain_ms"], bound_ms_3d_train=t3["bound_ms"],
              bound_by_3d_train=t3["bound_by"],
              cuda_launches_a_call=tk["split"]["launches_per_call"],
-             launches_profile=nv_prof["composite_bwd"]),
+             launches_profile=nv_prof["composite_bwd"],
+             launches_input=inp["launches"]["composite_bwd"]),
         *gather_rows]}
     report["result"] = kernels
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

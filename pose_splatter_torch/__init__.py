@@ -21,7 +21,12 @@ novel views, export and plots (``viz/``), profiling and log analysis
 (``utils/profiling.py``, ``utils/loganalysis.py``) and the user CLIs
 (``scripts/train.py``, ``evaluate.py``, ``render_image.py``,
 ``generate_videos.py``, ``export_gaussians.py``, ``visualize.py``,
-``profile.py``, ``analyze_convergence.py``).
+``profile.py``, ``analyze_convergence.py``), serving a recording and its
+input side (``scripts/temporal_benchmark.py``,
+``scripts/dbg_input_pipeline.py``, the native frame decode in
+``data/native.py`` over ``csrc/fastio.cpp``) and the utility scripts
+(``scripts/doctor.py``, ``dataset_utils.py``, ``organize_export.py``,
+``estimate_up_direction.py`` and the ``run_*.sh`` wrappers).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise instead of running on the CPU.

@@ -7,15 +7,19 @@ package).
   ``images.h5``. ``h5py`` and ``zarr`` are imported inside
   ``FrameDataset.__init__``: a machine without them can still import the
   module and use another dataset (``utils/synthetic.py::FrameSet``).
-- The mask comes from the white background: after ``/255`` a pixel is
-  background iff its red channel equals 1.0.
+- The mask comes from the white background: a pixel is background iff
+  its red channel is 255.
 - Per-frame centers and angles come from ``center_rotation.npz``.
 - Splits: train / valid / test = first / middle / last thirds; ``"all"``
   enumerates frame × view.
 - Only observed (non-holdout) views are returned, channel-last.
 
-Not ported: the native C++ decode (``decode_frame`` runs the NumPy path,
-which gives the same values).
+``decode_frame`` takes the native decode (``data/native.py``, built from
+``csrc/fastio.cpp`` at first use) where it builds, else NumPy, as the JAX
+package does. The two do not give the same values: the native decode
+scales by ``r * (1/255)`` and NumPy divides by 255, one ulp apart on 126 of
+the 256 byte values; the masks are equal. Where both packages decode
+natively their images are bit-equal.
 """
 
 from __future__ import annotations
@@ -25,12 +29,14 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+from pose_splatter_torch.data import native
+
 
 def decode_frame(raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """uint8 [C,H,W,3] → (mask [C,H,W] f32, img [C,H,W,3] f32 in [0,1])."""
-    img = raw.astype(np.float32) / 255.0
-    mask = np.where(img[..., 0] == 1.0, 0.0, 1.0).astype(np.float32)
-    return mask, img
+    """uint8 [C,H,W,3] → (mask [C,H,W] f32, img [C,H,W,3] f32 in [0,1]),
+    natively where the library builds, else by NumPy (``native.route()``
+    says which)."""
+    return native.decode_frame(raw)
 
 
 class FrameDataset:

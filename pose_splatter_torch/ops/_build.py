@@ -6,6 +6,8 @@ the repository root (listed in ``.gitignore``) the first time a kernel is
 launched, never at import, and loaded with ``ctypes``. The library's file
 name carries a hash of the source, the headers beside it and the flags, so
 an edited source is rebuilt and a stale library is never loaded.
+``compile_cached`` also builds the native frame decode
+(``data/native.py``) with ``g++``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -52,24 +54,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def compile_cached(out: Path, command: Callable[[str], List[str]],
+                   what: str) -> Path:
+    """Run ``command(tmp)``, which writes a library to the path ``tmp``,
+    unless ``out`` already exists; move the result to ``out`` and return it.
+    The compiler's messages go to ``<out>.log``; a failed build raises with
+    them. ``out``'s name carries a hash of what was compiled, so an
+    existing file is never stale."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    proc = subprocess.run(command(tmp), capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{what} failed:\n{proc.stderr}")
+    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     return the library's path. ``nvcc``'s messages go to ``<library>.log``;
     a failed build raises with them."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    return compile_cached(
+        library_path(name),
+        lambda tmp: [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                     str(CSRC / f"{name}.cu")],
+        f"nvcc for {name}.cu")
 
 
 def load(name: str) -> ctypes.CDLL:

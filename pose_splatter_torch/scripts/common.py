@@ -1,9 +1,13 @@
 """What the port's user CLIs share: the ``--device`` flag, a trained model
-from a config's checkpoint, full-resolution intrinsics and PNG output."""
+from a config's checkpoint, full-resolution intrinsics, PNG output and the
+benchmarks' report files with the card's name and power limit."""
 
 from __future__ import annotations
 
 import argparse
+import json
+import subprocess
+from typing import Optional
 
 import numpy as np
 
@@ -68,3 +72,27 @@ def save_png(rgb: np.ndarray, fn: str) -> None:
         import matplotlib.pyplot as plt
 
         plt.imsave(fn, rgb)
+
+
+def card_line() -> Optional[str]:
+    """``nvidia-smi``'s name and power limit of the first card, or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True)
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    return out.stdout.strip().splitlines()[0]
+
+
+def write_report(report: dict, path: str, device) -> None:
+    """``report`` as JSON at ``path``, with the card's line when ``device``
+    (a ``torch.device`` or its name) is CUDA."""
+    import torch
+
+    out = dict(report)
+    if torch.device(device).type == "cuda":
+        out["card"] = card_line()
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2)

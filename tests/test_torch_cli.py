@@ -51,11 +51,19 @@ CLIS = {
     "visualize": ("gaussians", "voxels", "training", "renders", "ellipses"),
     "profile": ("synthetic", "config"),
     "analyze_convergence": None,
+    # The utility scripts (tested in test_torch_cli_utils.py).
+    "doctor": None,
+    "dataset_utils": ("verify", "compare", "update_paths", "analyze"),
+    "organize_export": None,
+    "estimate_up_direction": None,
 }
+# CLIs that run on the host only: their --device is accepted and ignored.
+HOST_ONLY = {"analyze_convergence", "dataset_utils", "organize_export",
+             "estimate_up_direction"}
 # Modules of pose_splatter_torch/scripts that are not user CLIs of the
 # JAX package's Quick start (tested in their own files).
 OTHER = {"bench", "dbg_dyngather_micro", "preprocess", "synthetic_benchmark",
-         "common"}
+         "common", "temporal_benchmark", "dbg_input_pipeline"}
 U8 = 1.0 / 255
 
 
@@ -187,8 +195,9 @@ def _close_u8(got_u8, ref_float):
 
 
 def test_every_cli_is_tested():
-    """Every module of pose_splatter_torch/scripts is a CLI tested here or
-    in test_torch_cli_tools.py, or a listed other; each CLI, and each of
+    """Every module of pose_splatter_torch/scripts is a CLI tested here,
+    in test_torch_cli_tools.py or in test_torch_cli_utils.py, or a listed
+    other; each CLI, and each of
     its subcommands, takes --device, and those that run on the host only
     say in its help that they ignore it."""
     names = {m.name for m in pkgutil.iter_modules(scripts_pkg.__path__)}
@@ -206,7 +215,7 @@ def test_every_cli_is_tested():
             parsers = [parser]
         for p in parsers:
             (device,) = [a for a in p._actions if "--device" in a.option_strings]
-            host_only = name == "analyze_convergence" or (
+            host_only = name in HOST_ONLY or (
                 name == "visualize" and p.prog.split()[-1] != "voxels")
             assert device.help.startswith("ignored") == host_only, p.prog
 

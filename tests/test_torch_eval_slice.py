@@ -269,14 +269,14 @@ def test_ssim_filters_without_tf32(monkeypatch):
 
 def test_port_imports_without_jax():
     """The package and chip_smoke.py import with jax and flax absent, and
-    never load the JAX package; also with the optional packages that the
-    card's machine lacks (cv2, h5py, sklearn, joblib, zarr, matplotlib)
+    never load the JAX package; also with the optional packages that a
+    machine may lack (cv2, h5py, sklearn, joblib, zarr, matplotlib, PIL)
     absent, since every module imports them inside the functions that use
     them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'cv2', 'h5py', 'sklearn', 'joblib', 'zarr',\n"
-        "          'matplotlib'):\n"
+        "          'matplotlib', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import pose_splatter_torch\n"
         "for m in pkgutil.walk_packages(pose_splatter_torch.__path__, "
