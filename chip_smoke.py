@@ -138,6 +138,27 @@ all at once; it fails if a build fails or ptxas reports a spill), then:
    renders, card against CPU; (c) ``extract_world_gaussians`` card
    against CPU and the four savers; (d) ``profile_model`` on the 2D north
    star with both compositors' launches, and a ``trace`` of one fwd+bwd;
+16a. parallel: ``torch.distributed`` in a group of one rank over NCCL
+   (made at the phase's start, destroyed at its end): (a) 4 data-parallel
+   steps (``make_sharded_train_step``) of the 2D north star from the fresh
+   start against 4 of ``make_train_step`` from the same weights, cuDNN
+   held to deterministic algorithms, losses and weights bit-equal, ms a
+   step each, the compositor launches; (b) 2
+   (data = 1, tile = 1) steps of ``make_tile_sharded_train_step`` through
+   the ``"kernel"`` compositor on (8, 64) tiles, G = 64, capacity 4096,
+   against ``make_train_step`` on a ``"tiled"`` twin at the same tile and
+   capacity (loss within 1e-3, equal overflow; the gap to the kernel-mode
+   main path printed as information), running statistics unchanged, ms a
+   step, peak memory, launches, and both kernels against their plain
+   versions on a third step's arrays (the backward within ``bwd_error``'s
+   bound or, where the fresh start's crowded tiles cancel, within
+   ``bwd_float64_check``'s); (c) ``_composite_local`` on each of
+   4 row-aligned shards of the main path's (8, 128) tile grid at the
+   north star's Gaussians,
+   stitched, against one call over every tile (1e-5); (d)
+   ``graft_entry.dryrun_multichip(1)``; (e) ``scripts/scaling.py`` (one
+   row) and ``scripts/dbg_highres_sharded.py --devices 1 --steps 2`` at
+   1152x1024, grid 256;
 17. profiled: what ``torch.profiler`` measures, deferred to after every
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
@@ -264,6 +285,19 @@ SEQ_DISK_FRAMES = 360
 SEQ_PSNR_TOL = 1e-3
 # The input phase: the probe's own defaults.
 INPUT_FRAMES, INPUT_STEPS, INPUT_WORKERS = 48, 30, 4
+# The parallel phase: data-parallel steps against plain ones (bit-equal at
+# one rank), the tile step's tile, chunk and capacity (the "tiled" mode's
+# TILE_CAPACITY) and steps, its loss against the tiled reference (the JAX
+# dry run's 1e-3), the simulated ranks of the rank-local kernel and the
+# stitched render's tolerance against the whole one. The tile step's tile
+# divides the 576x512 image: the JAX tile step (kept) counts the pixels of
+# a partial tile outside the image in its losses (ROADMAP C.21), so only
+# such a tile makes it the unsharded step's loss.
+PAR_DP_STEPS = 4
+PAR_TILE, PAR_G, PAR_CAPACITY, PAR_TILE_STEPS = (8, 64), 64, 4096, 2
+PAR_TILE_RTOL = 1e-3
+PAR_SHARDS = 4
+PAR_STITCH_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -3273,6 +3307,315 @@ def viz_eval_phase(report, trained3, trained2):
     return out
 
 
+def north_star_frame(config, frames, obs, k):
+    """Frame k of ``frames`` as a batch of one, rendering observed view
+    k mod len(obs) against itself."""
+    j = k % len(obs)
+    return dict(mask=frames["mask"][k:k + 1, obs],
+                img=frames["img"][k:k + 1, obs],
+                p_3d=frames["p_3d"][k:k + 1], angle=frames["angle"][k:k + 1],
+                view_idx=np.array([obs[j]], np.int32),
+                obs_idx=np.array([j], np.int32))
+
+
+def parallel_phase(report, card):
+    """Phase 16a (see the module docstring): the parallel package on the
+    card, in a group of one rank over NCCL that it makes and destroys."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from pose_splatter_torch import graft_entry
+    from pose_splatter_torch.ops import rasterize_kernels as K
+    from pose_splatter_torch.ops.rasterize import DEFAULT_TILE, _alpha_ellipse
+    from pose_splatter_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        make_sharded_train_step,
+        replicate_state,
+        shard_batch,
+    )
+    from pose_splatter_torch.parallel.launch import free_port
+    from pose_splatter_torch.parallel.tile_sharding import (
+        _composite_local,
+        _padded_origins,
+        make_tile_sharded_train_step,
+    )
+    from pose_splatter_torch.scripts import dbg_highres_sharded, scaling
+    from pose_splatter_torch.train.loop import create_train_state, make_train_step
+    from pose_splatter_torch.train.trainer import build_model
+    from pose_splatter_torch.utils import stages
+    from pose_splatter_torch.utils.geometry import project_points, yaw_rotation
+
+    dev = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                 device="cuda")
+    out = dict(card=card, backend=dist.get_backend())
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        config = north_star_config()
+        Ks, Es, frames = ring_scene(config, VIEWS, 4, seed=1)
+
+        def twin(src=None, **kw):
+            m = build_model(config, cameras=(Ks, Es), device=dev, seed=0, **kw)
+            fresh_start(m)
+            if src is not None:
+                m.net.load_state_dict(src.net.state_dict())
+            return m
+
+        def counts():
+            return (K.composite_instances.launches,
+                    K.composite_instances_bwd.launches)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, 1e3 * (time.perf_counter() - t)
+
+        def zero():
+            K.composite_instances.launches = 0
+            K.composite_instances_bwd.launches = 0
+
+        # (a) ------------------------------------------------------------
+        a = twin()
+        b = twin(a)
+        obs = a.observed_views
+        batches = [north_star_frame(config, frames, obs, k)
+                   for k in range(PAR_DP_STEPS)]
+        mesh = make_mesh()
+        sa = replicate_state(create_train_state(a, config.lr), mesh)
+        sb = create_train_state(b, config.lr)
+        dp = make_sharded_train_step(a, sa.optimizer, config.img_lambda,
+                                     config.ssim_lambda, mesh)
+        plain = make_train_step(b, sb.optimizer, config.img_lambda,
+                                config.ssim_lambda, batch_size=1)
+        dp_loss, dp_ms, pl_loss, pl_ms = [], [], [], []
+        # cuDNN held to deterministic algorithms, so that the twins can be
+        # compared bit for bit (as the remat and bridge phases do).
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            zero()
+            for batch in batches:
+                (sa, m), ms = timed(lambda: dp(sa, shard_batch(batch, mesh)))
+                dp_loss.append(float(m["total"]))
+                dp_ms.append(ms)
+            dp_launches = counts()
+            for batch in batches:
+                (sb, m), ms = timed(lambda: plain(sb, batch))
+                pl_loss.append(float(m["total"]))
+                pl_ms.append(ms)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        w_diff = max(float((x - y).abs().max()) for x, y in zip(
+            a.net.state_dict().values(), b.net.state_dict().values()))
+        out["dp_step"] = dict(losses=dp_loss, plain_losses=pl_loss,
+                              ms=dp_ms, plain_ms=pl_ms,
+                              max_abs_weight_diff=w_diff,
+                              launches=dict(zip(("composite_fwd",
+                                                 "composite_bwd"),
+                                                dp_launches)))
+        print(f"[parallel] (a) {PAR_DP_STEPS} data-parallel steps at world 1 "
+              f"({out['backend']}) against make_train_step, 2D north star: "
+              f"losses {', '.join(f'{x:.6f}' for x in dp_loss)} / "
+              f"{', '.join(f'{x:.6f}' for x in pl_loss)}, largest weight "
+              f"difference {w_diff:.3g}; ms a step "
+              f"{', '.join(f'{x:.1f}' for x in dp_ms)} / "
+              f"{', '.join(f'{x:.1f}' for x in pl_ms)}; compositor launches "
+              f"{dp_launches}", flush=True)
+        if dp_loss != pl_loss or w_diff != 0 or dp_launches != (
+                PAR_DP_STEPS, PAR_DP_STEPS):
+            raise AssertionError("the data-parallel step at world 1 is not "
+                                 "make_train_step, or skipped a kernel")
+        del b, sb, plain
+
+        # (b) ------------------------------------------------------------
+        t = twin()
+        kw = dict(render_mode="tiled")
+        r = twin(t, **kw)
+        r.tile_shape, r.tile_capacity = PAR_TILE, PAR_CAPACITY
+        mesh11 = make_mesh((1, 1), ("data", "tile"))
+        st = create_train_state(t, config.lr)
+        sr = create_train_state(r, config.lr)
+        stats0 = {k: v.clone() for k, v in t.net.named_buffers()}
+        tile_step = make_tile_sharded_train_step(
+            t, st.optimizer, config.img_lambda, config.ssim_lambda, mesh11,
+            tile_shape=PAR_TILE, tile_capacity=PAR_CAPACITY, chunk=PAR_G,
+            compositor="kernel")
+        ref_step = make_train_step(r, sr.optimizer, config.img_lambda,
+                                   config.ssim_lambda, batch_size=1)
+        t_loss, t_ms, t_over, r_loss, r_over = [], [], [], [], []
+        zero()
+        for batch in batches[:PAR_TILE_STEPS]:
+            (st, loss), ms = timed(lambda: tile_step(
+                st, shard_batch(batch, mesh11, "data")))
+            t_loss.append(float(loss))
+            t_ms.append(ms)
+            t_over.append(float(tile_step.overflow))
+        tile_launches = counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        for batch in batches[:PAR_TILE_STEPS]:
+            sr, m = ref_step(sr, batch)
+            r_loss.append(float(m["total"]))
+            r_over.append(float(m["overflow"]))
+        stats_same = all(torch.equal(v, stats0[k])
+                         for k, v in t.net.named_buffers())
+        rel = max(abs(x - y) / max(1.0, abs(y)) for x, y in zip(t_loss, r_loss))
+        gap = abs(t_loss[0] - dp_loss[0])
+        # A third step recorded for its kernels' arrays.
+        with stages.record() as rec:
+            st, _ = tile_step(st, shard_batch(batches[PAR_TILE_STEPS % len(
+                batches)], mesh11, "data"))
+        bargs = rec.values["kernel_bwd"][-1]
+        inst, tbounds, astarts, cnts, origins, jstop = bargs[:6]
+        tile, G, mode = bargs[8], bargs[9], bargs[10]
+        fargs = (inst, astarts, cnts, origins, tile, G, mode)
+        fg = K.composite_instances(*fargs, save_tbounds=True)
+        fr = K.composite_instances_ref(*fargs, save_tbounds=True)
+        fwd_err = max(float((x - y).abs().max()) for x, y in
+                      ((fg[0], fr[0]), (fg[1], fr[1]), (fg[3], fr[3])))
+        d = K.composite_instances_bwd(*bargs)
+        d_ref = K.composite_instances_bwd_ref(*bargs)
+        torch.cuda.synchronize()
+        brel, btol = bwd_error(d, d_ref, jstop, tile, G)
+        fwd_ms = cuda_ms(lambda: K.composite_instances(*fargs), 20, 2)
+        fwd_plain_ms = cuda_ms(lambda: K.composite_instances_ref(*fargs), 2)
+        bwd_ms = cuda_ms(lambda: K.composite_instances_bwd(*bargs), 20, 2)
+        bwd_plain_ms = cuda_ms(lambda: K.composite_instances_bwd_ref(*bargs), 2)
+        fb = kernel_bound(astarts, cnts, jstop, tile, G)
+        bb = bwd_bound(inst, astarts, cnts, jstop, tile, G)
+        out["tile_step"] = dict(
+            losses=t_loss, ref_losses=r_loss, rel_err=rel, ms=t_ms,
+            overflow=t_over, ref_overflow=r_over, stats_unchanged=stats_same,
+            peak_bytes=peak, gap_to_kernel_main_path=gap,
+            launches=dict(zip(("composite_fwd", "composite_bwd"),
+                              tile_launches)),
+            kernels=dict(fwd_max_abs_err=fwd_err, bwd_rel_err=brel,
+                         bwd_tol=btol, bwd_max_abs_err=float(
+                             (d - d_ref).abs().max()),
+                         instance_rows=int(inst.shape[0]), tiles=int(
+                             cnts.numel()), fwd_ms=fwd_ms,
+                         fwd_plain_ms=fwd_plain_ms, fwd_bound=fb,
+                         bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+                         bwd_bound=bb))
+        print(f"[parallel] (b) (data=1, tile=1) step, kernel compositor on "
+              f"{PAR_TILE} tiles, G={PAR_G}, capacity {PAR_CAPACITY}: losses "
+              f"{', '.join(f'{x:.6f}' for x in t_loss)} against the tiled "
+              f"twin's {', '.join(f'{x:.6f}' for x in r_loss)} ({rel:.3g} "
+              f"relative, tol {PAR_TILE_RTOL}); overflow {t_over} / {r_over}; "
+              f"running statistics unchanged {stats_same}; ms a step "
+              f"{', '.join(f'{x:.1f}' for x in t_ms)}; peak memory "
+              f"{peak / 1e9:.3f} GB above the phase's start; launches "
+              f"{tile_launches}; gap to the kernel-mode main path's first "
+              f"loss {gap:.3g} (information: another tile and binning); on the "
+              f"step's "
+              f"arrays ({inst.shape[0]} rows, {cnts.numel()} tiles) the "
+              f"forward kernel {fwd_ms:.4f} ms (plain {fwd_plain_ms:.2f} ms, "
+              f"bound {fb['bound_ms']:.4f} ms) within {fwd_err:.3g} (tol "
+              f"{TOL}), the backward {bwd_ms:.4f} ms (plain "
+              f"{bwd_plain_ms:.2f} ms, bound {bb['bound_ms']:.4f} ms) within "
+              f"{brel:.3g} of each column's largest (tol {btol:.3g})",
+              flush=True)
+        if not rel <= PAR_TILE_RTOL or t_over != r_over or not stats_same \
+                or tile_launches != (PAR_TILE_STEPS, PAR_TILE_STEPS) \
+                or not fwd_err <= TOL or not torch.equal(fg[2], fr[2]):
+            raise AssertionError("the tile step disagrees with its tiled "
+                                 "reference or its forward kernel with its "
+                                 "plain version")
+        if not brel <= btol:
+            # The fresh start crowds thousands of Gaussians on a tile
+            # (the overflow above), whose gradient columns cancel, as at
+            # the highres fresh start: held against float64 there.
+            out["tile_step"]["kernels"]["float64"] = bwd_float64_check(
+                "parallel", d, d_ref, bargs, btol)
+        del r, sr, ref_step, tile_step
+
+        # (c) ------------------------------------------------------------
+        batch = batches[0]
+        with torch.no_grad():
+            g, _ = a.frame_gaussians(batch["mask"][0], batch["img"][0],
+                                     batch["p_3d"][0], batch["angle"][0])
+            rot = yaw_rotation(a._tensor(batch["angle"][0]))
+            anchors = g["anchor_means"] @ rot.T + a._tensor(batch["p_3d"][0])
+            v = int(batch["view_idx"][0])
+            means2d = project_points(anchors, a.Ks[v][None],
+                                     a.viewmats[v][None], clamp_z=True)[0]
+            means2d = means2d + g["means2d"]
+            sc = torch.exp(g["log_scales2d"])
+            radius = a.sigma_cutoff * torch.maximum(sc[:, 0], sc[:, 1])
+            args = ((means2d, sc, g["rotation"],
+                     torch.sigmoid(g["logit_opacities"])), g["colors"],
+                    g["valid"], means2d, radius, _alpha_ellipse, DEFAULT_TILE,
+                    PAR_CAPACITY, PAR_G, False, 0.0, "kernel")
+            origins, n_ty, n_tx, pad = _padded_origins(
+                H, W, DEFAULT_TILE, PAR_SHARDS, row_aligned=True, device=dev)
+            T_real = n_ty * n_tx
+            whole = _composite_local(origins[:T_real], *args)
+            T_l = origins.shape[0] // PAR_SHARDS
+            zero()
+            parts = [_composite_local(origins[i * T_l:(i + 1) * T_l], *args)
+                     for i in range(PAR_SHARDS)]
+            shard_launches = counts()
+            stitched = [torch.cat([p[j] for p in parts])[:T_real]
+                        for j in range(2)]
+        st_err = max(float((x - y).abs().max())
+                     for x, y in zip(stitched, whole))
+        out["rank_local"] = dict(shards=PAR_SHARDS, tiles=T_real, pad=pad,
+                                 max_abs_err=st_err,
+                                 launches=shard_launches[0],
+                                 alpha_max=float(whole[1].max()))
+        print(f"[parallel] (c) _composite_local on {PAR_SHARDS} row-aligned "
+              f"shards of {T_real} tiles (+{pad} pad), stitched, against one "
+              f"call over every tile: max|diff| {st_err:.3g} (tol "
+              f"{PAR_STITCH_TOL}), {shard_launches[0]} forward launches, "
+              f"alpha max {float(whole[1].max()):.3f}", flush=True)
+        if not st_err <= PAR_STITCH_TOL or shard_launches[0] != PAR_SHARDS:
+            raise AssertionError("the rank-local shards do not stitch into "
+                                 "the whole render")
+        del a, sa, dp, t, st
+
+        # (d) ------------------------------------------------------------
+        buf = io.StringIO()
+        zero()
+        with contextlib.redirect_stdout(buf):
+            graft_entry.dryrun_multichip(1, device=dev)
+        dry_launches = counts()
+        lines = [x for x in buf.getvalue().splitlines() if " OK: " in x]
+        for x in lines:
+            print(f"[parallel] (d) {x}", flush=True)
+        out["dryrun"] = dict(lines=lines, launches=dict(zip(
+            ("composite_fwd", "composite_bwd"), dry_launches)))
+        if len(lines) != 2 or dry_launches != (1, 1):
+            raise AssertionError("dryrun_multichip(1) did not print its two "
+                                 "lines or skipped the kernels")
+
+        # (e) ------------------------------------------------------------
+        with contextlib.redirect_stdout(io.StringIO()):
+            sc_report = scaling.main([])
+            hr = dbg_highres_sharded.main(["--devices", "1", "--steps", "2"])
+        out["scaling"], out["highres"] = sc_report, hr
+        row = sc_report["rows"][0]
+        print(f"[parallel] (e) scripts/scaling.py: {row['steps_per_s']} "
+              f"steps/s at 1 rank ({sc_report['config']}); "
+              f"dbg_highres_sharded --devices 1: first step "
+              f"{hr['first_step_s']:.3f} s, steady {hr['steady_step_s']:.3f} "
+              f"s, loss {hr['loss']:.6f}, peak memory "
+              f"{hr['peak_bytes_above_start'] / 1e9:.3f} GB ({hr['config']})",
+              flush=True)
+        if len(sc_report["rows"]) != 1 or not hr["loss_finite"]:
+            raise AssertionError("the scaling script or the high-res probe "
+                                 "failed")
+    finally:
+        dist.destroy_process_group()
+    report["parallel_phase"] = out
+    return out
+
+
 def _leaves(tree):
     """The numpy leaves of a nested dict / tuple tree, in order."""
     if isinstance(tree, dict):
@@ -3392,6 +3735,7 @@ def main(argv=None) -> int:
         run("bridge", bridge_phase, res["train2d"][2])
         run("preprocess", preprocess_phase, res["train3d"][2])
         run("viz_eval", viz_eval_phase, res["train3d"][2], res["train2d"][2])
+        run("parallel", parallel_phase, card)
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -3416,6 +3760,8 @@ def main(argv=None) -> int:
     nv, nv_prof = (res["viz_eval"]["novel_view"],
                    res["viz_eval"]["profile"]["launches"])
     seq, inp = res["temporal"], res["input"]
+    par = res["parallel"]
+    pk = par["tile_step"]["kernels"]
 
     def bench_launches(kernel):
         return {f"launches_bench_{m}": bench_lines[f"{m}_kernel"]["launches"][
@@ -3428,12 +3774,14 @@ def main(argv=None) -> int:
         for m in ("3d", "2d")] + [
         ad3["kernels"]["fwd_max_abs_err"], rm2["kernels"]["fwd_max_abs_err"],
         vf["max_abs_err"], nv["kernel"]["max_abs_err"],
-        seq["kernel"]["max_abs_err"]]
+        seq["kernel"]["max_abs_err"], pk["fwd_max_abs_err"],
+        par["rank_local"]["max_abs_err"]]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
         tk["max_abs_err"], t3["max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["bwd_max_abs_err"]
         for m in ("3d", "2d")] + [
-        ad3["kernels"]["bwd_max_abs_err"], rm2["kernels"]["bwd_max_abs_err"]]
+        ad3["kernels"]["bwd_max_abs_err"], rm2["kernels"]["bwd_max_abs_err"],
+        pk["bwd_max_abs_err"]]
 
     def new_path_launches(kernel):
         out = dict(
@@ -3442,7 +3790,11 @@ def main(argv=None) -> int:
             launches_remat_2d=rm2["runs"]["remat"]["launches"][kernel])
         if kernel == "composite_fwd":
             out.update(launches_carve_cap_eval=cap["eval_launches"],
-                       launches_adaptive_3d_eval=ad3["eval_launches"])
+                       launches_adaptive_3d_eval=ad3["eval_launches"],
+                       launches_rank_local=par["rank_local"]["launches"])
+        out.update(launches_dp_step=par["dp_step"]["launches"][kernel],
+                   launches_tile_step=par["tile_step"]["launches"][kernel],
+                   launches_dryrun=par["dryrun"]["launches"][kernel])
         return out
 
     kernels = {"kernels": [
@@ -3484,7 +3836,12 @@ def main(argv=None) -> int:
              plain_ms_temporal=seq["kernel"]["plain_ms"],
              bound_ms_temporal=seq["kernel"]["bound_ms"],
              bound_by_temporal=seq["kernel"]["bound_by"],
-             launches_input=inp["launches"]["composite_fwd"]),
+             launches_input=inp["launches"]["composite_fwd"],
+             max_abs_err_tile_step=pk["fwd_max_abs_err"],
+             ms_tile_step=pk["fwd_ms"], plain_ms_tile_step=pk["fwd_plain_ms"],
+             bound_ms_tile_step=pk["fwd_bound"]["bound_ms"],
+             bound_by_tile_step=pk["fwd_bound"]["bound_by"],
+             max_abs_err_rank_local=par["rank_local"]["max_abs_err"]),
         dict(name="composite_bwd", route="cuda",
              source="pose_splatter_torch/csrc/composite_bwd.cu",
              replaces="pose_splatter_tpu/ops/rasterize_pallas.py:528",
@@ -3501,7 +3858,12 @@ def main(argv=None) -> int:
              bound_by_3d_train=t3["bound_by"],
              cuda_launches_a_call=tk["split"]["launches_per_call"],
              launches_profile=nv_prof["composite_bwd"],
-             launches_input=inp["launches"]["composite_bwd"]),
+             launches_input=inp["launches"]["composite_bwd"],
+             max_abs_err_tile_step=pk["bwd_max_abs_err"],
+             rel_err_tile_step=pk["bwd_rel_err"],
+             ms_tile_step=pk["bwd_ms"], plain_ms_tile_step=pk["bwd_plain_ms"],
+             bound_ms_tile_step=pk["bwd_bound"]["bound_ms"],
+             bound_by_tile_step=pk["bwd_bound"]["bound_by"]),
         *gather_rows]}
     report["result"] = kernels
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

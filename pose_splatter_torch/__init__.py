@@ -4,7 +4,7 @@ The JAX package stays the reference; this package mirrors its module names
 (``ops/carving.py``, ``models/unet3d.py``, ``train/loop.py``, ...) so each
 counterpart is easy to find. It imports ``torch`` and never ``jax``.
 
-Covered so far: the 2D (view-anchored) and 3D models in eval and train
+Covered: the 2D (view-anchored) and 3D models in eval and train
 (carve → residual U-Nets → Gaussian selection + MLP head → projection →
 binning → the hand-written CUDA compositors, or the ``"tiled"`` and
 ``"global"`` compositors in plain PyTorch → losses, Adam, K steps a call),
@@ -26,7 +26,10 @@ input side (``scripts/temporal_benchmark.py``,
 ``scripts/dbg_input_pipeline.py``, the native frame decode in
 ``data/native.py`` over ``csrc/fastio.cpp``) and the utility scripts
 (``scripts/doctor.py``, ``dataset_utils.py``, ``organize_export.py``,
-``estimate_up_direction.py`` and the ``run_*.sh`` wrappers).
+``estimate_up_direction.py`` and the ``run_*.sh`` wrappers), and
+multi-rank training over ``torch.distributed`` (``parallel/``: the
+data-parallel and (data, tile) steps, ``graft_entry.py::dryrun_multichip``,
+``scripts/scaling.py``, ``scripts/dbg_highres_sharded.py``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise instead of running on the CPU.

@@ -96,12 +96,17 @@ def _mean(metrics):
             for k in metrics[0]}
 
 
-def _step(model, optimizer, frames, img_lambda: float, ssim_lambda: float):
+def _step(model, optimizer, frames, img_lambda: float, ssim_lambda: float,
+          mean_over: Optional[Callable] = None):
     """One optimizer step over ``frames`` (frame dicts): each frame's
     forward, loss and backward (of loss / B) from the same old BN
     statistics, one Adam step, the running statistics set to the frames'
     mean. Returns the metrics meaned over the frames. No read-back: a CUDA
-    graph can capture it (with the gradients None before the capture)."""
+    graph can capture it (with the gradients None before the capture).
+
+    ``mean_over(tensors) -> tensors`` averages over the other ranks of a
+    data-parallel step (``parallel/sharding.py``): the gradients before
+    the update, then the new statistics and the metrics."""
     stages.mark("data")
     optimizer.zero_grad(set_to_none=True)
     metrics, stats = [], []
@@ -113,12 +118,25 @@ def _step(model, optimizer, frames, img_lambda: float, ssim_lambda: float):
         stages.mark("backward")
         metrics.append(m)
         stats.append(new_stats)
+    if mean_over is not None:
+        # Parameters whose gradient stays None are left out on every rank.
+        grads = [p.grad for p in model.net.parameters() if p.grad is not None]
+        for g, m in zip(grads, mean_over(grads)):
+            g.copy_(m)
     optimizer.step()
-    with torch.no_grad():
-        buffers = dict(model.net.named_buffers())
-        for name in stats[0]:
-            buffers[name].copy_(torch.stack([s[name] for s in stats]).mean(0))
     mean = _mean(metrics)
+    with torch.no_grad():
+        new = {name: torch.stack([s[name] for s in stats]).mean(0)
+               for name in stats[0]}
+        if mean_over is not None:
+            keys = list(new) + list(mean)
+            both = dict(zip(keys, mean_over([new[k] for k in new]
+                                            + [mean[k] for k in mean])))
+            new = {k: both[k] for k in new}
+            mean = {k: both[k] for k in mean}
+        buffers = dict(model.net.named_buffers())
+        for name, value in new.items():
+            buffers[name].copy_(value)
     stages.mark("optimizer", mean)
     return mean
 

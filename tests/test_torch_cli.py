@@ -63,7 +63,8 @@ HOST_ONLY = {"analyze_convergence", "dataset_utils", "organize_export",
 # Modules of pose_splatter_torch/scripts that are not user CLIs of the
 # JAX package's Quick start (tested in their own files).
 OTHER = {"bench", "dbg_dyngather_micro", "preprocess", "synthetic_benchmark",
-         "common", "temporal_benchmark", "dbg_input_pipeline"}
+         "common", "temporal_benchmark", "dbg_input_pipeline", "scaling",
+         "dbg_highres_sharded"}
 U8 = 1.0 / 255
 
 
