@@ -159,6 +159,20 @@ all at once; it fails if a build fails or ptxas reports a spill), then:
    ``graft_entry.dryrun_multichip(1)``; (e) ``scripts/scaling.py`` (one
    row) and ``scripts/dbg_highres_sharded.py --devices 1 --steps 2`` at
    1152x1024, grid 256;
+16b. probes: the stage-attribution probes (``pose_splatter_torch.
+   scripts.dbg_dispatch_floor``, ``bench_breakdown``,
+   ``dbg_rast_breakdown``, ``dbg_kernel_profile ... full``,
+   ``dbg_vmap_kernel``, ``dbg_gather_bwd``, ``dbg_bin_micro``,
+   ``dbg_carve_micro``, ``dbg_model_breakdown``, ``dbg_step_bisect``),
+   each ``main`` at its full default shape with both compositors'
+   launches read around it (held to the count its lines make), every
+   line kept; the checks: ``dbg_vmap_kernel``'s parity, the two backward
+   forms of ``dbg_gather_bwd`` ``allclose``, the carve micro's visibility
+   variants equal where their semantics are (items 1, 2 and 8 on one
+   set, 8 and 1 on the other), both compositors against their plain
+   versions on the arrays ``bench_breakdown``'s recorded fwd+bwd binned
+   (``bench_kernels``), and ``ray_cast_visibility`` on the card against
+   the CPU, both methods, bit for bit on an exact 32^3 grid;
 17. profiled: what ``torch.profiler`` measures, deferred to after every
    timed phase: the gather kernel's duration, each compositor call's
    device operations and their device time (``split_stats``), and the
@@ -301,10 +315,10 @@ PAR_STITCH_TOL = 1e-5
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    from pose_splatter_torch.utils.device import card_line as line
+
+    return line("cuda")
 
 
 # ----------------------------------------------------------------------------
@@ -3616,6 +3630,124 @@ def parallel_phase(report, card):
     return out
 
 
+# The probes in the order the phase runs them, each with its argv (its
+# full default shape) and the compositor launches (forward, backward) it
+# makes: a line launches on each of its 20 timed calls and one warm-up
+# call (model lines: 5 and 1); see each probe's docstring.
+PROBE_RUNS = (
+    ("dbg_dispatch_floor", [], (0, 0)),
+    # 5 forward lines, 2 of them with the backward; +1 recorded fwd+bwd.
+    ("bench_breakdown", [], (5 * 21 + 1, 2 * 21 + 1)),
+    ("dbg_rast_breakdown", [], (4 * 21, 2 * 21)),
+    # kernel fwd, fwd empty, fwd+bwd, full fwd and 4 fwd+bwd lines.
+    ("dbg_kernel_profile", ["64", "8", "128", "full"], (8 * 21, 5 * 21)),
+    # 3 frames: the lifted cap, the default cap, then with gradients.
+    ("dbg_vmap_kernel", [], (9, 3)),
+    ("dbg_gather_bwd", [], (0, 0)),
+    ("dbg_bin_micro", [], (0, 0)),
+    ("dbg_carve_micro", [], (0, 0)),
+    # full fwd, train step, grad thru render, grad full loss: 6 calls each.
+    ("dbg_model_breakdown", [], (4 * 6, 3 * 6)),
+    # 4 configurations of 6 train steps.
+    ("dbg_step_bisect", [], (4 * 6, 4 * 6)),
+)
+VIS_GRID = 32
+
+
+def visibility_card_vs_cpu():
+    """``ray_cast_visibility`` on the card against the CPU, both methods,
+    bit for bit, on a 32^3 grid of (k - 15.5)/32 coordinates, the
+    occupied voxels a ball, seen by 4 cameras turned by quarter turns
+    about y at distance 2 with f = 64 on 64x64 images: every coordinate,
+    product and sum of the projection and the distances is exact in
+    float32, and the division and square root are rounded the same way
+    on both devices, so the two must agree exactly. The grid is
+    symmetric about each camera's axis, so mirrored voxels lie at equal
+    distances on one pixel: the sort gives such a tie to the lower voxel
+    index, the segment method marks both (``ties_kept_by_segment``)."""
+    import torch
+
+    from pose_splatter_torch.ops import carving as C
+
+    g = (torch.arange(VIS_GRID, dtype=torch.float32) - 15.5) / 32
+    pts = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    occ = (pts ** 2).sum(-1) < 0.35 ** 2
+    Es = torch.zeros((4, 4, 4))
+    for i, (c, s_) in enumerate(((1, 0), (0, 1), (-1, 0), (0, -1))):
+        Es[i, :3, :3] = torch.tensor([[c, 0, s_], [0, 1, 0], [-s_, 0, c]],
+                                     dtype=torch.float32)
+        Es[i, 2, 3], Es[i, 3, 3] = 2.0, 1.0
+    Ks = torch.tensor([[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]]).expand(4, 3, 3)
+    out = {}
+    for method in ("sort", "segment"):
+        cpu = C.ray_cast_visibility(pts, occ, Ks, Es, 64, 64, method)
+        card = C.ray_cast_visibility(pts.cuda(), occ.cuda(), Ks.cuda(),
+                                     Es.cuda(), 64, 64, method).cpu()
+        out[method] = dict(visible=int(cpu.sum()),
+                           mismatches=int((cpu != card).sum()))
+    out["ties_kept_by_segment"] = (out["segment"]["visible"]
+                                   - out["sort"]["visible"])
+    print(f"[probes] ray_cast_visibility card vs CPU on a {VIS_GRID}^3 grid "
+          f"({int(occ.sum())} occupied, 4 cameras): {out}", flush=True)
+    if any(out[m]["mismatches"] for m in ("sort", "segment")):
+        raise AssertionError(f"ray_cast_visibility differs card vs CPU: {out}")
+    return out
+
+
+def probes_phase(report, card):
+    """Phase 16b (see the module docstring): every stage-attribution
+    probe's ``main`` at its full default shape, the compositors' launches
+    read around each, and the checks the probes carry."""
+    import importlib
+
+    import torch
+
+    from pose_splatter_torch.ops import rasterize_kernels as K
+
+    out = {}
+    for name, argv, expect in PROBE_RUNS:
+        mod = importlib.import_module(f"pose_splatter_torch.scripts.{name}")
+        t = time.perf_counter()
+        K.composite_instances.launches = 0
+        K.composite_instances_bwd.launches = 0
+        if name == "bench_breakdown":
+            r = mod.run(record=True)
+        else:
+            r = mod.main(argv)
+        torch.cuda.synchronize()
+        launches = (K.composite_instances.launches,
+                    K.composite_instances_bwd.launches)
+        r = dict(r, launches=dict(zip(("composite_fwd", "composite_bwd"),
+                                      launches)),
+                 seconds=time.perf_counter() - t)
+        rec = r.pop("recording", None)
+        if launches != expect:
+            raise AssertionError(f"[probes] {name}: compositor launches "
+                                 f"{launches}, expected {expect}")
+        if rec is not None:
+            r["kernels"] = bench_kernels("probes bench_breakdown", rec, None)
+        if name == "dbg_gather_bwd" and not r["allclose"]:
+            raise AssertionError("[probes] dbg_gather_bwd: the two backward "
+                                 "forms disagree")
+        if name == "dbg_carve_micro" and not all(r["agree"].values()):
+            raise AssertionError(f"[probes] dbg_carve_micro: the visibility "
+                                 f"variants disagree: {r['agree']}")
+        if name == "dbg_vmap_kernel" and not r["parity"]:
+            raise AssertionError("[probes] dbg_vmap_kernel: no parity")
+        lines = r.get("lines", {})
+        head = (f"{len(lines)} lines, last {list(lines)[-1]} "
+                f"{lines[list(lines)[-1]]:.4f} ms" if lines else
+                f"parity {r.get('parity')}, fwd err "
+                f"{r.get('fwd_max_abs_err', 0):.3g}, grad err "
+                f"{r.get('grad_max_abs_err', 0):.3g}")
+        print(f"[probes] {name}: {head}; compositor launches {launches}; "
+              f"{r['seconds']:.1f} s; {card}", flush=True)
+        out[name] = r
+    out["visibility_card_vs_cpu"] = visibility_card_vs_cpu()
+    report["probes_phase"] = out
+    return out
+
+
 def _leaves(tree):
     """The numpy leaves of a nested dict / tuple tree, in order."""
     if isinstance(tree, dict):
@@ -3736,6 +3868,7 @@ def main(argv=None) -> int:
         run("preprocess", preprocess_phase, res["train3d"][2])
         run("viz_eval", viz_eval_phase, res["train3d"][2], res["train2d"][2])
         run("parallel", parallel_phase, card)
+        run("probes", probes_phase, card)
     run("profiled", lambda _: [measure() for measure in later])
     report["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -3762,6 +3895,8 @@ def main(argv=None) -> int:
     seq, inp = res["temporal"], res["input"]
     par = res["parallel"]
     pk = par["tile_step"]["kernels"]
+    prb = res["probes"]
+    prk = prb["bench_breakdown"]["kernels"]
 
     def bench_launches(kernel):
         return {f"launches_bench_{m}": bench_lines[f"{m}_kernel"]["launches"][
@@ -3775,13 +3910,13 @@ def main(argv=None) -> int:
         ad3["kernels"]["fwd_max_abs_err"], rm2["kernels"]["fwd_max_abs_err"],
         vf["max_abs_err"], nv["kernel"]["max_abs_err"],
         seq["kernel"]["max_abs_err"], pk["fwd_max_abs_err"],
-        par["rank_local"]["max_abs_err"]]
+        par["rank_local"]["max_abs_err"], prk["fwd_max_abs_err"]]
     bwd_errs = [kp[m]["bwd_max_abs_err"] for m in kp] + [
         tk["max_abs_err"], t3["max_abs_err"]] + [
         bench_lines[f"{m}_kernel"]["kernels"]["bwd_max_abs_err"]
         for m in ("3d", "2d")] + [
         ad3["kernels"]["bwd_max_abs_err"], rm2["kernels"]["bwd_max_abs_err"],
-        pk["bwd_max_abs_err"]]
+        pk["bwd_max_abs_err"], prk["bwd_max_abs_err"]]
 
     def new_path_launches(kernel):
         out = dict(
@@ -3794,7 +3929,9 @@ def main(argv=None) -> int:
                        launches_rank_local=par["rank_local"]["launches"])
         out.update(launches_dp_step=par["dp_step"]["launches"][kernel],
                    launches_tile_step=par["tile_step"]["launches"][kernel],
-                   launches_dryrun=par["dryrun"]["launches"][kernel])
+                   launches_dryrun=par["dryrun"]["launches"][kernel],
+                   launches_probes=sum(prb[name]["launches"][kernel]
+                                       for name, _, _ in PROBE_RUNS))
         return out
 
     kernels = {"kernels": [

@@ -3,6 +3,12 @@
 ``get_volume`` is the plain averaged back-projection that preprocessing
 carves with, for one frame or a batch of frames at once.
 
+``ray_cast_visibility`` is the frontmost-occupied-voxel test on its own
+(``"sort"``: one winner per pixel; ``"segment"``: a scatter-min where
+ties all win), ``compute_voxel_colors`` the visibility-weighted colours
+built on it, and ``shape_carve_volume`` / ``shape_carve_mask`` the
+reference's whitening and binarisation of carved volumes.
+
 Counterpart of ``pose_splatter_tpu/ops/carving.py::carve_volume``: the
 nearest-pixel gathers (one fused 4-channel gather when mask and color share
 intrinsics, a separate mask projection for the adaptive camera's
@@ -26,6 +32,7 @@ voxels by a gather.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -90,6 +97,72 @@ def get_volume(
     return avg.transpose(1, 2).reshape(B, ch, n1, n2, n3)
 
 
+def frontmost_visible(
+    dists: torch.Tensor,     # [C, N] voxel-to-camera distances (>= 0)
+    flat: torch.Tensor,      # [C, N] flattened pixel indices
+    occupied: torch.Tensor,  # [N] bool
+    n_pixels: int,
+    method: str = "sort",
+) -> torch.Tensor:
+    """[C, N] bool: voxel n is visible from camera c iff it is occupied and
+    no other occupied voxel on the same pixel is closer (the per-camera
+    core of :func:`ray_cast_visibility`, ``carving.py:111-130``).
+
+    ``"sort"``: a stable sort by (pixel, distance), the unoccupied voxels
+    at +inf; the first voxel of each pixel segment wins if it is finite,
+    so exactly one occupied voxel a pixel wins and ties go to the lower
+    voxel index. A permutation scatter restores voxel order.
+    ``"segment"``: the pixels' minimum by ``scatter_reduce("amin")``, as
+    ``jax.ops.segment_min``; every co-minimal voxel wins.
+    """
+    masked = torch.where(occupied[None, :], dists,
+                         torch.full_like(dists, math.inf))
+    if method == "segment":
+        idx = flat.long()
+        front = torch.full((dists.shape[0], n_pixels), math.inf,
+                           dtype=dists.dtype, device=dists.device)
+        front.scatter_reduce_(1, idx, masked, "amin", include_self=True)
+        visible = masked <= torch.gather(front, 1, idx)
+    elif method == "sort":
+        key = (flat.long() << 32) | masked.contiguous().view(torch.int32).long()
+        _, order = torch.sort(key, dim=1, stable=True)
+        p_s = torch.gather(flat, 1, order)
+        first = torch.ones_like(p_s, dtype=torch.bool)
+        first[:, 1:] = p_s[:, 1:] != p_s[:, :-1]
+        vis_s = first & torch.isfinite(torch.gather(masked, 1, order))
+        visible = torch.empty_like(vis_s).scatter_(1, order, vis_s)
+    else:
+        raise ValueError(f"unknown visibility method {method!r} "
+                         "(expected 'sort' or 'segment')")
+    return visible & occupied[None, :]
+
+
+def ray_cast_visibility(
+    grid_points: torch.Tensor,
+    occupied: torch.Tensor,
+    intrinsics: torch.Tensor,
+    extrinsics: torch.Tensor,
+    height: int,
+    width: int,
+    method: str = "sort",
+) -> torch.Tensor:
+    """Frontmost-voxel visibility among the occupied set
+    (``carving.py:81-130``).
+
+    grid_points [N,3]; occupied [N] bool; intrinsics [C,3,3], extrinsics
+    [C,4,4] → visibility [C,N] bool. Distances to the camera centres and
+    the rounded pixels of the z-clamped projection, then
+    :func:`frontmost_visible` with ``method`` ``"sort"`` (one winner a
+    pixel, the reference's scatter *argmin*) or ``"segment"`` (ties all
+    visible).
+    """
+    cam_pos = camera_positions(extrinsics)  # [C, 3]
+    dists = torch.linalg.norm(grid_points[None] - cam_pos[:, None, :], dim=-1)
+    pix = project_points(grid_points, intrinsics, extrinsics, clamp_z=True)
+    _, _, flat = _pixel_indices(pix, height, width)  # [C, N]
+    return frontmost_visible(dists, flat, occupied, height * width, method)
+
+
 def ray_cast_visibility_pair(
     dists: torch.Tensor,  # [C, N] voxel-to-camera distances (>= 0)
     flat: torch.Tensor,   # [C, N] flattened pixel indices
@@ -121,6 +194,48 @@ def ray_cast_visibility_pair(
         return vis
 
     return first_occupied(occ1) & occ1[None, :], first_occupied(occ2) & occ2[None, :]
+
+
+def compute_voxel_colors(
+    grid_points: torch.Tensor,
+    occupied: torch.Tensor,
+    images: torch.Tensor,
+    intrinsics: torch.Tensor,
+    extrinsics: torch.Tensor,
+    nonvisible_weight: float = 0.25,
+) -> torch.Tensor:
+    """Visibility-weighted voxel colours over all voxels (mask later;
+    ``carving.py:176-196``): images [C,H,W,3] → [N,3], each camera's
+    nearest pixel weighted 1 where the voxel is visible from it and
+    ``nonvisible_weight`` elsewhere, the weights normalised."""
+    C, H, W, _ = images.shape
+    visible = ray_cast_visibility(grid_points, occupied, intrinsics,
+                                  extrinsics, H, W)  # [C, N]
+    pix = project_points(grid_points, intrinsics, extrinsics, clamp_z=True)
+    sampled = sample_nearest_pixels(images, pix)  # [C, N, 3]
+    weights = torch.where(visible, 1.0, nonvisible_weight)
+    weights = weights / torch.clamp(weights.sum(dim=0, keepdim=True), min=1e-8)
+    return torch.einsum("cn,cnk->nk", weights, sampled)
+
+
+def shape_carve_volume(mask_volume: torch.Tensor, image_volume: torch.Tensor,
+                       C: int = 6, eps: float = 1e-2) -> torch.Tensor:
+    """Whiten image voxels outside the carved mask
+    (``shape_carving.py:90-95``)."""
+    mult = torch.broadcast_to(mask_volume > (C - 1.0) / C - eps,
+                              image_volume.shape)
+    return torch.where(mult, torch.ones_like(image_volume), image_volume)
+
+
+def shape_carve_mask(volume: torch.Tensor, C: int = 6,
+                     eps: float = 1e-2) -> torch.Tensor:
+    """Binarize the first three channels at the reference's three carve
+    thresholds (``shape_carving.py:98-110``); the thresholds are float32,
+    as the JAX package's."""
+    th = torch.tensor([(C - 1.0) / C - eps, 1.0 - eps, (C - 2.0) / C - eps],
+                      dtype=torch.float32, device=volume.device)
+    binarized = (volume[:3] > th[:, None, None, None]).to(volume.dtype)
+    return torch.cat([binarized, volume[3:]], dim=0)
 
 
 def compact_occupied(occ: torch.Tensor, cap: int

@@ -359,17 +359,19 @@ class Instances(NamedTuple):
 
 
 def bin_instances(packed, center, radius, valid, height: int, width: int,
-                  tile_shape: Tuple[int, int], chunk: int,
-                  expand: int) -> Instances:
+                  tile_shape: Tuple[int, int], chunk: int, expand: int,
+                  instance_cap: Optional[int] = None) -> Instances:
     """Bin B cameras' Gaussians (packed [B,N,16], center [B,N,2], radius
     [B,N], valid [B,N]) into one instance array with cameras folded into
     the tile axis (``rasterize.py:402-462``). Each camera holds at most
-    4·N + T·chunk instance rows, as in the JAX package; rows past that are
-    dropped and counted."""
+    ``instance_cap`` instance rows (default 4·N + T·chunk, as in the JAX
+    package); rows past that are dropped and counted."""
     origins, n_ty, n_tx = _tile_grid(height, width, tile_shape, packed.device)
     T = n_ty * n_tx
     B, N = packed.shape[:2]
-    mcap = instance_rows(N, T, expand, chunk, cap=4 * N + T * chunk)
+    if instance_cap is None:
+        instance_cap = 4 * N + T * chunk
+    mcap = instance_rows(N, T, expand, chunk, cap=instance_cap)
     # Zero-sanitize invalid rows: zero opacity keeps them inert.
     packed = torch.where(valid[..., None], packed, torch.zeros_like(packed))
     dest, src, astarts, counts, overflow = _build_instances(
@@ -401,11 +403,12 @@ def untile(rgb_t, alpha_t, B: int, n_ty: int, n_tx: int,
 
 def _composite_instances(packed, center, radius, valid, mode: str,
                          height: int, width: int, tile_shape, chunk: int,
-                         expand: int):
-    """Instance-binned compositing over a batch of cameras. Returns
-    rgb [B,H,W,3], alpha [B,H,W] and the total overflow count."""
+                         expand: int, instance_cap: Optional[int] = None):
+    """Instance-binned compositing over a batch of cameras
+    (``instance_cap`` as :func:`bin_instances`). Returns rgb [B,H,W,3],
+    alpha [B,H,W] and the total overflow count."""
     b = bin_instances(packed, center, radius, valid, height, width,
-                      tile_shape, chunk, expand)
+                      tile_shape, chunk, expand, instance_cap)
     stages.mark("binning", b)
     rgb_t, alpha_t = composite_with_grad(
         b.inst, b.astarts, b.counts, b.origins, tile_shape, chunk, mode)

@@ -151,13 +151,7 @@ def _build_instances(center, radius, valid, n_ty: int, n_tx: int,
         [torch.zeros((B, 1), dtype=torch.long, device=dev),
          torch.cumsum(nsteps, dim=1)], dim=1)  # [B, T+1]
 
-    sorted_tiles, perm = torch.sort(flat, stable=True)
-    group_start = torch.cumsum(counts_all, 0) - counts_all
-    rank_sorted = (torch.arange(flat.numel(), device=dev)
-                   - group_start[sorted_tiles])
-    rank = torch.empty_like(rank_sorted)
-    rank[perm] = rank_sorted  # perm is a permutation: unique indices
-    rank = rank.reshape(B, N, expand)
+    rank = _slot_rank(flat, counts_all).reshape(B, N, expand)
 
     tile_c = torch.where(ok, tile, torch.zeros_like(tile))
     row = torch.gather(astarts, 1, tile_c.reshape(B, -1)).reshape(B, N, expand)
@@ -178,19 +172,42 @@ def _build_instances(center, radius, valid, n_ty: int, n_tx: int,
             overflow_span + overflow_cap)
 
 
+def _slot_rank(flat: torch.Tensor, counts_all: torch.Tensor) -> torch.Tensor:
+    """Each slot's rank among the earlier slots of its tile: flat [K] tile
+    ids (slot order), counts_all [n] slots a tile id. A stable sort of the
+    slots by tile, each sorted slot's offset from its tile's first, and a
+    scatter back by the sort's permutation (the JAX code reads the rank off
+    an exclusive cumsum of an [N, T] one-hot, ``_excl_cumsum_mxu``)."""
+    sorted_tiles, perm = torch.sort(flat, stable=True)
+    group_start = torch.cumsum(counts_all, 0) - counts_all
+    rank_sorted = (torch.arange(flat.numel(), device=flat.device)
+                   - group_start[sorted_tiles])
+    rank = torch.empty_like(rank_sorted)
+    rank[perm] = rank_sorted  # perm is a permutation: unique indices
+    return rank
+
+
+def _invert_slots(dest: torch.Tensor, src: torch.Tensor, n: int,
+                  mcap: int) -> torch.Tensor:
+    """inv [B, mcap] with inv[b, dest[b, k]] = src[b, k] where dest < mcap,
+    else n (``rasterize_pallas.py:299-303``). One scatter whose indices are
+    unique and in range: each dropped slot k writes its own dump column
+    ``mcap + k``, which is cut off afterwards."""
+    B, M = dest.shape
+    keep = dest < mcap
+    idx = torch.where(keep, dest, mcap + torch.arange(M, device=dest.device))
+    inv = torch.full((B, mcap + M), n, dtype=torch.long, device=dest.device)
+    inv.scatter_(1, idx, src)
+    return inv[:, :mcap]
+
+
 class _GatherInstances(torch.autograd.Function):
     @staticmethod
     def forward(ctx, packed, dest, src, mcap):
         B, N, nf = packed.shape
-        M = dest.shape[1]
-        dev = packed.device
-        keep = dest < mcap
-        idx = torch.where(keep, dest, mcap + torch.arange(M, device=dev))
-        inv = torch.full((B, mcap + M), N, dtype=torch.long, device=dev)
-        inv.scatter_(1, idx, src)
-        inv = inv[:, :mcap]
-        padded = torch.cat(
-            [packed, torch.zeros((B, 1, nf), dtype=packed.dtype, device=dev)], 1)
+        inv = _invert_slots(dest, src, N, mcap)
+        padded = torch.cat([packed, torch.zeros(
+            (B, 1, nf), dtype=packed.dtype, device=packed.device)], 1)
         ctx.save_for_backward(dest)
         ctx.mcap, ctx.n = mcap, N
         return torch.gather(padded, 1, inv[..., None].expand(-1, -1, nf))
@@ -213,9 +230,8 @@ def gather_instances(packed: torch.Tensor, dest: torch.Tensor,
     all-zero). Slot k goes to row ``dest[k]`` from Gaussian ``src[k]``;
     rows >= mcap are dropped.
 
-    The slot map is inverted with one scatter whose indices are unique and
-    in range: each dropped slot k writes its own dump column ``mcap + k``,
-    which is cut off afterwards. Then the rows are gathered.
+    The slot map is inverted by :func:`_invert_slots`, then the rows are
+    gathered.
 
     Backward (``rasterize_pallas.py:306-324``): ``dpacked[n] = Σ_e
     dinst[dest[n, e]]``, a gather with dead slots reading an appended zero
@@ -514,11 +530,20 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_tile(tile_shape: Tuple[int, int], chunk: int,
+               max_chunk: int = 768) -> None:
+    """Raise unless the kernels take this tile and chunk: at most 1024
+    pixels a tile, chunks of 1 to ``max_chunk`` rows (768 forward, 512
+    backward: the backward's shared memory holds 384 bytes a row)."""
+    if tile_shape[0] * tile_shape[1] > 1024 or not 0 < chunk <= max_chunk:
+        raise ValueError(f"tile {tile_shape} / chunk {chunk} not supported "
+                         f"(P <= 1024 pixels, chunk <= {max_chunk} rows)")
+
+
 def _check_launch(inst, astarts, counts, origins, tile_shape, chunk,
                   max_chunk):
     """Checks the kernels share; returns (R, T, P)."""
-    th, tw = tile_shape
-    P = th * tw
+    P = tile_shape[0] * tile_shape[1]
     nt = astarts.shape[0]
     R = inst.shape[0]
     dev = inst.device
@@ -528,9 +553,7 @@ def _check_launch(inst, astarts, counts, origins, tile_shape, chunk,
     _check("origins", origins, torch.int32, (nt, 2), dev)
     if R % chunk:
         raise ValueError(f"instance rows {R} not a multiple of chunk {chunk}")
-    if P > 1024 or not 0 < chunk <= max_chunk:
-        raise ValueError(f"tile {tile_shape} / chunk {chunk} not supported "
-                         f"(P <= 1024 pixels, chunk <= {max_chunk} rows)")
+    check_tile(tile_shape, chunk, max_chunk)
     if inst.data_ptr() % 16:
         raise ValueError("inst must be 16-byte aligned")
     return R, nt, P

@@ -14,7 +14,7 @@ from typing import Iterator, Sequence, Tuple
 import numpy as np
 
 
-def _cv2():
+def require_cv2():
     """The ``cv2`` module, or ImportError with what needs it."""
     try:
         import cv2
@@ -24,7 +24,7 @@ def _cv2():
 
 
 def video_frame_count(video_fn: str) -> int:
-    cv2 = _cv2()
+    cv2 = require_cv2()
     cap = cv2.VideoCapture(video_fn)
     n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
     cap.release()
@@ -43,7 +43,7 @@ def iter_mask_frames(
     Reads every video sequentially with ``frame_jump`` skipping, matching
     ``calculate_center_rotation.py:93-116``.
     """
-    cv2 = _cv2()
+    cv2 = require_cv2()
     caps = [cv2.VideoCapture(fn) for fn in mask_video_fns]
     for cap in caps:
         cap.set(cv2.CAP_PROP_POS_FRAMES, frame_indices[0])
@@ -81,7 +81,7 @@ def iter_masked_rgb_frames(
 ) -> Iterator[Tuple[int, np.ndarray]]:
     """Yield (frame_idx, frames [C,h,w,3] uint8) with the background
     whited out where mask < 128 (``write_images.py:84-91``)."""
-    cv2 = _cv2()
+    cv2 = require_cv2()
     WHITE = 255 * np.ones(3, np.uint8)
     mask_caps = [cv2.VideoCapture(fn) for fn in mask_video_fns]
     video_caps = [cv2.VideoCapture(fn) for fn in video_fns]

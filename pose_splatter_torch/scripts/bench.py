@@ -53,10 +53,11 @@ METRICS = {"3d": "rasterize_fwd_bwd_throughput",
 GRAPH_REPLAYS = 20
 
 
-def scene_3d(batch: int, H: int = H, W: int = W, N: int = N):
+def scene_3d(batch: int, H: int = H, W: int = W, N: int = N, seed: int = 0):
     """``bench.py::run_3d``'s inputs as float32 numpy arrays: means, quats,
-    scales, opacities, colours, viewmats [batch,4,4], Ks [batch,3,3]."""
-    rng = np.random.default_rng(0)
+    scales, opacities, colours, viewmats [batch,4,4], Ks [batch,3,3]
+    (``bench.py`` draws them with seed 0)."""
+    rng = np.random.default_rng(seed)
     # Mouse-like cluster: Gaussians concentrated in the central third.
     means = np.concatenate(
         [rng.normal(0, 0.06, (N, 2)), rng.normal(2.0, 0.06, (N, 1))], axis=1)

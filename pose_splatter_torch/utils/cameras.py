@@ -13,6 +13,8 @@ A copy of what the port needs from ``pose_splatter_tpu/utils/cameras.py``
   ``batch_weighted_median``, ``get_rough_center_3d``, ``_mask_medoids`` and
   ``adjust_principal_points_to_seed`` (per-frame principal-point
   re-centering on the mask medoids' DLT seed);
+- ``w2c_to_c2w`` (``:131``): world-to-camera to camera-to-world in the
+  reference's viewer convention;
 - ``camera_extrinsic_spherical`` (``:285``): a camera on a sphere looking at
   the origin.
 
@@ -104,6 +106,17 @@ def get_cam_params(
     if holdout_views is not None:
         keep = np.setdiff1d(np.arange(C), np.asarray(holdout_views, int))
     return K[keep], extrinsic[keep], Ps[keep]
+
+
+def w2c_to_c2w(w2c: np.ndarray) -> np.ndarray:
+    """World-to-camera → camera-to-world in the reference's viewer
+    convention (``src/utils.py:115-120``): flip y/z columns, swap the first
+    two rows, negate the third."""
+    c2w = np.linalg.inv(w2c)
+    c2w[:, 0:3, 1:3] *= -1
+    c2w = c2w[:, [1, 0, 2, 3], :]
+    c2w[:, 2] *= -1
+    return c2w
 
 
 # ----------------------------------------------------------------------------

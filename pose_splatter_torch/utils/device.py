@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+import time
 from typing import Callable, Union
 
 import torch
@@ -39,3 +41,36 @@ def cuda_ms(fn: Callable[[], object], iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def call_ms(fn: Callable[[], object], device: Union[str, torch.device],
+            iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds a call of ``fn``: :func:`cuda_ms` on a CUDA device;
+    on the CPU, which computes as it is called, the host clock over the
+    ``iters`` calls after ``warmup`` (a time of the CPU, not of a card)."""
+    if torch.device(device).type == "cuda":
+        return cuda_ms(fn, iters, warmup)
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def card_line(device: Union[str, torch.device] = "cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, or
+    ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"{torch.cuda.get_device_name(index)} (power limit not read: {e})"
+    return out.stdout.strip().splitlines()[index]

@@ -1,0 +1,171 @@
+"""The port's public carving API against the JAX package on the CPU:
+``ray_cast_visibility`` (both methods, exactly), ``compute_voxel_colors``,
+``shape_carve_volume`` and ``shape_carve_mask`` (within 1e-6),
+``w2c_to_c2w`` (bit for bit) and ``require_cv2``. Mirrors
+``tests/test_carving.py:66-105``."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pose_splatter_tpu.ops import carving as jc
+from pose_splatter_tpu.preprocess import video as jvideo
+from pose_splatter_tpu.utils import cameras as jcam
+from pose_splatter_torch.ops import carving as tc
+from pose_splatter_torch.preprocess import video as tvideo
+from pose_splatter_torch.utils import cameras as tcam
+
+torch.set_num_threads(1)
+
+H, W = 24, 32
+
+
+def _rig(C=4, seed=0):
+    """C cameras on a ring around the origin, looking at it."""
+    Ks = np.array([[[40.0, 0, W / 2], [0, 40.0, H / 2], [0, 0, 1]]] * C,
+                  np.float32)
+    Es = np.stack([tcam.camera_extrinsic_spherical(1.5, np.pi / 2.5,
+                                                   2 * np.pi * i / C + seed)
+                   for i in range(C)]).astype(np.float32)
+    return Ks, Es
+
+
+def _points(n, seed):
+    """Random points in a cube around the origin (no two at the same
+    distance from a camera, so both packages' sorts pick the same
+    winner) and a random occupancy."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    occ = rng.uniform(size=n) < 0.6
+    return pts, occ
+
+
+def _both(fn_j, fn_t, *args):
+    ref = np.asarray(fn_j(*[jnp.asarray(a) for a in args]))
+    got = fn_t(*[torch.from_numpy(np.asarray(a)) for a in args]).numpy()
+    return ref, got
+
+
+@pytest.mark.parametrize("method", ["sort", "segment"])
+@pytest.mark.parametrize("n,seed", [(400, 0), (3000, 1)])
+def test_ray_cast_visibility_equals_jax(method, n, seed):
+    Ks, Es = _rig(seed=seed)
+    pts, occ = _points(n, seed)
+    ref, got = _both(
+        lambda p, o, k, e: jc.ray_cast_visibility(p, o, k, e, H, W, method),
+        lambda p, o, k, e: tc.ray_cast_visibility(p, o, k, e, H, W, method),
+        pts, occ, Ks, Es)
+    assert got.dtype == np.bool_ and got.shape == (4, n)
+    np.testing.assert_array_equal(ref, got)
+    assert got.sum() > 0 and not got[:, ~occ].any()
+
+
+def test_sort_has_one_winner_a_pixel_and_segment_keeps_ties():
+    """Two occupied voxels at exactly the same distance on one pixel:
+    ``"sort"`` marks the lower voxel index, ``"segment"`` both."""
+    d = torch.tensor([[1.0, 2.0, 1.0, 0.5]])
+    flat = torch.tensor([[7, 7, 7, 3]])
+    occ = torch.tensor([True, True, True, False])
+    srt = tc.frontmost_visible(d, flat, occ, 16, "sort")
+    seg = tc.frontmost_visible(d, flat, occ, 16, "segment")
+    assert srt.tolist() == [[True, False, False, False]]
+    assert seg.tolist() == [[True, False, True, False]]
+    with pytest.raises(ValueError, match="unknown visibility method"):
+        tc.frontmost_visible(d, flat, occ, 16, "scan")
+
+
+def test_nearer_voxel_occludes_and_empty_voxels_do_not_shadow():
+    """``tests/test_carving.py:67-88`` on the port, both methods."""
+    K = torch.tensor([[[50.0, 0, 16], [0, 50.0, 16], [0, 0, 1]]])
+    E = torch.eye(4)[None]
+    pts = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, 2.0], [0.3, 0.3, 1.5]])
+    for method in ("sort", "segment"):
+        vis = tc.ray_cast_visibility(pts, torch.ones(3, dtype=torch.bool), K,
+                                     E, 32, 32, method)
+        assert vis[0].tolist() == [True, False, True]
+        vis = tc.ray_cast_visibility(pts[:2], torch.tensor([False, True]), K,
+                                     E, 32, 32, method)
+        assert vis[0].tolist() == [False, True]
+
+
+def test_the_pair_equals_two_sort_calls():
+    """The carve's one-sort pair (``ray_cast_visibility_pair``) is two
+    ``"sort"`` visibilities, one a threshold."""
+    rng = np.random.default_rng(3)
+    d = torch.from_numpy(rng.uniform(0.5, 1.5, (3, 5000)).astype(np.float32))
+    flat = torch.from_numpy(rng.integers(0, 400, (3, 5000)))
+    occ1 = torch.from_numpy(rng.uniform(size=5000) < 0.2)
+    occ2 = occ1 | torch.from_numpy(rng.uniform(size=5000) < 0.3)
+    v1, v2 = tc.ray_cast_visibility_pair(d, flat, occ1, occ2)
+    assert torch.equal(v1, tc.frontmost_visible(d, flat, occ1, 400))
+    assert torch.equal(v2, tc.frontmost_visible(d, flat, occ2, 400))
+
+
+@pytest.mark.parametrize("nonvisible_weight", [0.25, 0.5])
+def test_compute_voxel_colors_matches_jax(nonvisible_weight):
+    Ks, Es = _rig(seed=2)
+    pts, occ = _points(1500, 2)
+    imgs = np.random.default_rng(5).uniform(
+        size=(4, H, W, 3)).astype(np.float32)
+    ref, got = _both(
+        lambda *a: jc.compute_voxel_colors(*a, nonvisible_weight),
+        lambda *a: tc.compute_voxel_colors(*a, nonvisible_weight),
+        pts, occ, imgs, Ks, Es)
+    assert got.shape == (1500, 3)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_compute_voxel_colors_weighting():
+    """``tests/test_carving.py:91-105`` on the port: a voxel seen by both
+    cameras gets the mean colour."""
+    K = torch.tensor([[[50.0, 0, 16], [0, 50.0, 16], [0, 0, 1]]] * 2)
+    E1 = np.eye(4)
+    E1[2, 3] = 2.0
+    E2 = np.eye(4)
+    E2[:3, :3] = [[1, 0, 0], [0, -1, 0], [0, 0, -1]]
+    E2[2, 3] = 2.0
+    E = torch.from_numpy(np.stack([E1, E2]).astype(np.float32))
+    imgs = torch.stack([torch.full((32, 32, 3), 0.2), torch.full((32, 32, 3), 0.8)])
+    colors = tc.compute_voxel_colors(torch.zeros((1, 3)),
+                                     torch.tensor([True]), imgs, K, E)
+    assert torch.allclose(colors[0], torch.tensor(0.5), atol=1e-5)
+
+
+@pytest.mark.parametrize("C,eps", [(6, 1e-2), (4, 0.05)])
+def test_shape_carve_volume_and_mask_match_jax(C, eps):
+    rng = np.random.default_rng(C)
+    # Values on and near the thresholds, where float32 decides.
+    th = np.array([(C - 1.0) / C - eps, 1.0 - eps, (C - 2.0) / C - eps],
+                  np.float32)
+    vol = rng.choice(np.concatenate([th, th + 1e-7, th - 1e-7,
+                                     rng.uniform(size=30)]).astype(np.float32),
+                     size=(5, 6, 7, 8))
+    mask_vol = vol[:1]
+    img_vol = rng.uniform(size=(3, 6, 7, 8)).astype(np.float32)
+    ref, got = _both(lambda m, i: jc.shape_carve_volume(m, i, C, eps),
+                     lambda m, i: tc.shape_carve_volume(m, i, C, eps),
+                     mask_vol, img_vol)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    assert (got == 1.0).any() and (got < 1.0).any()
+    ref, got = _both(lambda v: jc.shape_carve_mask(v, C, eps),
+                     lambda v: tc.shape_carve_mask(v, C, eps), vol)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    assert got.dtype == np.float32 and set(np.unique(got[:3])) == {0.0, 1.0}
+
+
+def test_w2c_to_c2w_is_bit_equal():
+    Ks, Es = _rig(C=5)
+    w2c = Es.astype(np.float64) + np.random.default_rng(0).normal(
+        0, 1e-3, Es.shape) * np.array([1, 1, 1, 0])
+    np.testing.assert_array_equal(tcam.w2c_to_c2w(w2c.copy()),
+                                  jcam.w2c_to_c2w(w2c.copy()))
+
+
+def test_require_cv2():
+    """Both packages' gate passes here (cv2 is installed); the port's also
+    hands back the module, which its decode functions use."""
+    jvideo.require_cv2()
+    cv2 = tvideo.require_cv2()
+    assert hasattr(cv2, "VideoCapture")

@@ -64,7 +64,12 @@ HOST_ONLY = {"analyze_convergence", "dataset_utils", "organize_export",
 # JAX package's Quick start (tested in their own files).
 OTHER = {"bench", "dbg_dyngather_micro", "preprocess", "synthetic_benchmark",
          "common", "temporal_benchmark", "dbg_input_pipeline", "scaling",
-         "dbg_highres_sharded"}
+         "dbg_highres_sharded",
+         # The stage-attribution probes (tests/test_torch_probes.py).
+         "probe_common", "bench_breakdown", "dbg_rast_breakdown",
+         "dbg_kernel_profile", "dbg_vmap_kernel", "dbg_gather_bwd",
+         "dbg_bin_micro", "dbg_carve_micro", "dbg_model_breakdown",
+         "dbg_step_bisect", "dbg_dispatch_floor"}
 U8 = 1.0 / 255
 
 
