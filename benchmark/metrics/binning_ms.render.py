@@ -1,0 +1,5 @@
+"""Binning (in 3D with the projection and depth sort): the "binning" stage, median ms a frame."""
+
+
+def read(trace):
+    return trace.stage_ms("binning")
