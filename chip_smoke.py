@@ -824,7 +824,7 @@ def eval_phase(report, key, config, mode, later):
         whole = float(np.median(runs))
         with stages.record() as rec:
             model(mask, img, p_3d, angle, view_idx)
-        st = dict(rec.ms)
+        st = {k: sum(v) for k, v in rec.spans.items()}
         g, b = rec.values["select_head"][-1], rec.values["binning"][-1]
         t = time.perf_counter()
         tl, _ = total_loss(rgb_e[obs], alpha_e[obs], model._tensor(img[0]),

@@ -57,6 +57,8 @@ TABLE_STEPS = 1 << 14
 AFTER_UP_STEPS = 4
 
 _TABLES: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+# The root span of a forward outside a train step (``utils/stages.py``).
+_FRAME = stages.Scope("frame")
 
 
 def _f32_walk(start: np.ndarray, step: np.float32, n: int) -> np.ndarray:
@@ -207,13 +209,12 @@ def select_gaussians(
                                  prob_threshold, vol0.device)
         mt_t, thr, miss = _loops_on_device(v_lo, v_hi, tables)
     elif route == "host":
-        lo, hi = torch.cat([v_lo, v_hi]).cpu().numpy()
+        lo, hi = stages.blocking(torch.cat([v_lo, v_hi]).cpu).numpy()
         lp = f32(math.log(prob_threshold / (1.0 - prob_threshold)))
         mt = _loops_on_host(lo, hi, lp, f32(mask_threshold),
                             f32(mask_threshold_delta))
-        mt_t = torch.tensor(mt, dtype=torch.float32, device=vol0.device)
-        thr = torch.tensor(f32(mt + lp), dtype=torch.float32,
-                           device=vol0.device)
+        mt_t, thr = stages.to_device(np.array([mt, f32(mt + lp)], f32),
+                                     vol0.device).unbind()
         miss = torch.zeros((), dtype=torch.bool, device=vol0.device)
     else:
         raise ValueError(f"unknown selection route {route!r}")
@@ -455,7 +456,7 @@ class PoseSplatter(nn.Module):
         table (``select_gaussians``' device route); clears the flag. One
         read of a device value: callers check once a call, after the work
         they enqueued."""
-        if bool(self.selection_miss):
+        if stages.blocking(bool, self.selection_miss):
             self.selection_miss.zero_()
             raise RuntimeError(
                 "select_gaussians: an occupancy value lies outside the mask "
@@ -464,7 +465,7 @@ class PoseSplatter(nn.Module):
                 "or fewer than min_n values are counted")
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return stages.to_device(x, self.device, torch.float32)
 
     # ------------------------------------------------------------------
     def make_adaptive_fn(self):
@@ -503,13 +504,14 @@ class PoseSplatter(nn.Module):
         ``center``: the head's Gaussians (:meth:`gaussians_from_volume`, not
         yet posed) and the flat indices [max_n] of the voxels selected for
         them (``valid`` marks the real ones). ``new_stats`` as in
-        :meth:`PoseSplatterNet.process_volume`. Marks the stages "carve"
-        and "unets"."""
+        :meth:`PoseSplatterNet.process_volume`. Ends the stages "carve"
+        and "unets" and starts "select_head", which the caller ends."""
+        stages.begin("carve")
         volume = self.carve(mask, img, center, angle, K_mask)  # [4,n1,n2,n3]
-        stages.mark("carve")
+        stages.end("carve", then="unets")
         vol_flat = self.net.process_volume(volume.permute(1, 2, 3, 0)[None],
                                            new_stats)
-        stages.mark("unets")
+        stages.end("unets", then="select_head")
         sel = self._select(vol_flat)
         return self._gaussians_from_selection(vol_flat, sel), sel.indices
 
@@ -580,7 +582,7 @@ class PoseSplatter(nn.Module):
         given (3D and anchored 2D; ``pose_splatter.py:448-527``).
         Returns rgb [B,H,W,3], alpha [B,H,W], overflow [] (instances
         dropped by finite binning capacity)."""
-        view_idx = torch.as_tensor(view_idx, device=self.device).reshape(-1).long()
+        view_idx = stages.to_device(view_idx, self.device).reshape(-1).long()
         Ks = self.Ks if K_override is None else K_override
         if self.gaussian_mode == "3d":
             return rasterize(
@@ -635,15 +637,17 @@ class PoseSplatter(nn.Module):
         returns (not while a CUDA graph captures it); in train mode the
         train step checks it once a step, or a call of K steps.
         """
-        if train:
-            return self._forward(mask, img, p_3d, angle, view_idx, {},
-                                 K_mask, carve_center)
-        with torch.no_grad():
-            rgb, alpha, _, overflow = self._forward(
-                mask, img, p_3d, angle, view_idx, None, K_mask, carve_center)
-        if not (self.device.type == "cuda"
-                and torch.cuda.is_current_stream_capturing()):
-            self.check_selection()
+        with _FRAME:
+            if train:
+                return self._forward(mask, img, p_3d, angle, view_idx, {},
+                                     K_mask, carve_center)
+            with torch.no_grad():
+                rgb, alpha, _, overflow = self._forward(
+                    mask, img, p_3d, angle, view_idx, None, K_mask,
+                    carve_center)
+            if not (self.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                self.check_selection()
         if return_overflow:
             return rgb, alpha, overflow
         return rgb, alpha
@@ -659,7 +663,7 @@ class PoseSplatter(nn.Module):
             # Pose-transform the anchors only (deltas/scales stay as-is).
             rot = yaw_rotation(self._tensor(angle))
             g["anchor_means"] = g["anchor_means"] @ rot.T + self._tensor(p_3d)
-        stages.mark("select_head", g)
+        stages.end("select_head", g, then="binning")
         # The observed views' temp_K in a copy of the camera set: the
         # model's own intrinsics stay as they are for later frames and for
         # the holdout views.

@@ -409,13 +409,14 @@ def _composite_instances(packed, center, radius, valid, mode: str,
     alpha [B,H,W] and the total overflow count."""
     b = bin_instances(packed, center, radius, valid, height, width,
                       tile_shape, chunk, expand, instance_cap)
-    stages.mark("binning", b)
+    stages.binned(b.counts, b.overflow)
+    stages.end("binning", b, then="kernel")
     rgb_t, alpha_t = composite_with_grad(
         b.inst, b.astarts, b.counts, b.origins, tile_shape, chunk, mode)
-    stages.mark("kernel")
+    stages.end("kernel", then="untile")
     rgb, alpha = untile(rgb_t, alpha_t, packed.shape[0], b.n_ty, b.n_tx,
                         tile_shape, height, width)
-    stages.mark("untile")
+    stages.end("untile")
     return rgb, alpha, b.overflow
 
 

@@ -669,6 +669,8 @@ def composite_instances_bwd(inst, tbounds, astarts, counts, origins, jstop,
 
 
 composite_instances_bwd.launches = 0
+stages.count_launches("composite_fwd", composite_instances)
+stages.count_launches("composite_bwd", composite_instances_bwd)
 
 
 class _Composite(torch.autograd.Function):
@@ -686,13 +688,14 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha):
-        stages.mark("loss_bwd")
+        stages.end("loss_bwd", then="kernel_bwd")
         inst, tbounds, astarts, counts, origins, jstop = ctx.saved_tensors
         args = (inst, tbounds, astarts, counts, origins, jstop,
                 g_rgb.contiguous(), g_alpha.contiguous()) + ctx.cfg
         dinst = composite_instances_bwd(*args)
-        stages.mark("kernel_bwd", tuple(
-            a.detach() if torch.is_tensor(a) else a for a in args))
+        stages.end("kernel_bwd", tuple(
+            a.detach() if torch.is_tensor(a) else a for a in args),
+            then="backward")
         return dinst, None, None, None, None, None, None
 
 

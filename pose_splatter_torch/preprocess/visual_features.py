@@ -111,7 +111,7 @@ def make_frame_features(
     @torch.no_grad()
     def frame_features(mask, img, p_3d, angle, theta) -> torch.Tensor:
         g, _ = model.frame_gaussians(mask, img, p_3d, angle)
-        stages.mark("select_head", g)
+        stages.end("select_head", g)
         means = g["means"] - g["means"].mean(dim=0, keepdim=True)
         means = means @ yaw_rotation(theta, device=dev).T
         rgb, _ = model.splat(

@@ -38,6 +38,9 @@ METRICS = ("iou", "ssim", "img", "total", "overflow")
 # capture reads (Adam's state, the selection's table, the kernels,
 # cuDNN's choices), as in PyTorch's whole-network capture.
 WARMUP_STEPS = 3
+# Root spans of a train step and of a K-step call (``utils/stages.py``).
+_STEP = stages.Scope("step")
+_MULTI_STEP = stages.Scope("multi_step")
 
 
 def adam(params, lr: float) -> torch.optim.Adam:
@@ -79,7 +82,8 @@ def _forward_loss(model, frame: Dict, img_lambda: float, ssim_lambda: float,
     else:
         rgb, alpha, overflow = model(*args, return_overflow=True, **adaptive)
         new_stats = None
-    obs = torch.as_tensor(frame["obs_idx"], device=mask.device).reshape(1).long()
+    stages.begin("loss")
+    obs = stages.to_device(frame["obs_idx"], mask.device).reshape(1).long()
     loss, metrics = total_loss(rgb[0], alpha[0], img.index_select(0, obs)[0],
                                mask.index_select(0, obs)[0], img_lambda,
                                ssim_lambda)
@@ -113,11 +117,15 @@ def _step(model, optimizer, frames, img_lambda: float, ssim_lambda: float,
     for frame in frames:
         loss, m, new_stats = _forward_loss(model, frame, img_lambda,
                                            ssim_lambda, train=True)
-        stages.mark("loss", loss)
+        # The compositor's backward (kernel mode) ends "loss_bwd" and runs
+        # "kernel_bwd" and "backward"; other modes have no such boundary.
+        stages.end("loss", loss, then="loss_bwd"
+                   if model.render_mode == "kernel" else "backward")
         (loss / len(frames)).backward()
-        stages.mark("backward")
+        stages.end("backward")
         metrics.append(m)
         stats.append(new_stats)
+    stages.begin("optimizer")
     if mean_over is not None:
         # Parameters whose gradient stays None are left out on every rank.
         grads = [p.grad for p in model.net.parameters() if p.grad is not None]
@@ -137,7 +145,7 @@ def _step(model, optimizer, frames, img_lambda: float, ssim_lambda: float,
         buffers = dict(model.net.named_buffers())
         for name, value in new.items():
             buffers[name].copy_(value)
-    stages.mark("optimizer", mean)
+    stages.end("optimizer", mean)
     return mean
 
 
@@ -164,11 +172,13 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     """
 
     def train_step(state: TrainState, batch: Dict):
-        frames = _frames(batch)
-        if len(frames) != batch_size:
-            raise ValueError(f"batch of {len(frames)} frames, expected {batch_size}")
-        mean = _step(model, optimizer, frames, img_lambda, ssim_lambda)
-        model.check_selection()
+        with _STEP:
+            frames = _frames(batch)
+            if len(frames) != batch_size:
+                raise ValueError(f"batch of {len(frames)} frames, "
+                                 f"expected {batch_size}")
+            mean = _step(model, optimizer, frames, img_lambda, ssim_lambda)
+            model.check_selection()
         return state._replace(step=state.step + 1), mean
 
     return train_step
@@ -252,40 +262,43 @@ class MultiStep:
             raise RuntimeError(
                 "multi_step cannot run inside stages.record(): every mark "
                 "synchronises, which a captured step cannot do")
-        K = self.steps_per_call
-        dev = self.model.device
-        idx = torch.stack([torch.as_tensor(x).reshape(-1).long()
-                           for x in (frame_idx, view_idx, obs_idx)], 1)
-        if idx.shape != (K, 3):
-            raise ValueError(f"expected {K} steps' indices, got {idx.shape[0]}")
-        idx = idx.to(dev)  # one copy of the K index triples
-        hist = torch.empty((K, len(METRICS)), dtype=torch.float32, device=dev)
-        k = 0
-        if dev.type != "cuda":
-            for k in range(K):
-                hist[k] = self._one(idx[k])
-        else:
-            if self.graph is None:
-                main = torch.cuda.current_stream(dev)
-                side = torch.cuda.Stream(dev)
-                side.wait_stream(main)
-                with torch.cuda.stream(side):
-                    while k < K and self.warmup_left > 0:
-                        hist[k] = self._one(idx[k])
-                        k += 1
-                        self.warmup_left -= 1
-                main.wait_stream(side)
-                if self.warmup_left == 0:
-                    self._capture()
-            for k in range(k, K):
-                self.static_idx.copy_(idx[k])
-                self.graph.replay()
-                hist[k].copy_(self.static_metrics)
-                self.replays += 1
-        self.model.check_selection()
-        self.step_metrics = {n: hist[:, i] for i, n in enumerate(METRICS)}
-        return (state._replace(step=state.step + K),
-                {n: hist[-1, i] for i, n in enumerate(METRICS)})
+        with _MULTI_STEP:
+            K = self.steps_per_call
+            dev = self.model.device
+            idx = torch.stack([torch.as_tensor(x).reshape(-1).long()
+                               for x in (frame_idx, view_idx, obs_idx)], 1)
+            if idx.shape != (K, 3):
+                raise ValueError(f"expected {K} steps' indices, "
+                                 f"got {idx.shape[0]}")
+            idx = stages.to_device(idx, dev)  # one copy of the K index triples
+            hist = torch.empty((K, len(METRICS)), dtype=torch.float32,
+                               device=dev)
+            k = 0
+            if dev.type != "cuda":
+                for k in range(K):
+                    hist[k] = self._one(idx[k])
+            else:
+                if self.graph is None:
+                    main = torch.cuda.current_stream(dev)
+                    side = torch.cuda.Stream(dev)
+                    side.wait_stream(main)
+                    with torch.cuda.stream(side):
+                        while k < K and self.warmup_left > 0:
+                            hist[k] = self._one(idx[k])
+                            k += 1
+                            self.warmup_left -= 1
+                    main.wait_stream(side)
+                    if self.warmup_left == 0:
+                        self._capture()
+                for k in range(k, K):
+                    self.static_idx.copy_(idx[k])
+                    self.graph.replay()
+                    hist[k].copy_(self.static_metrics)
+                    self.replays += 1
+            self.model.check_selection()
+            self.step_metrics = {n: hist[:, i] for i, n in enumerate(METRICS)}
+            return (state._replace(step=state.step + K),
+                    {n: hist[-1, i] for i, n in enumerate(METRICS)})
 
 
 def make_train_multi_step(model, optimizer: torch.optim.Optimizer,

@@ -1,29 +1,89 @@
-"""Per-stage timing of the forward and the train step, off unless a caller
-records.
+"""Stage spans of the train step and the forward, the program's count of
+its own blocking reads of the device, and the synchronising recording.
 
-The forward, the compositor's backward and the train step mark the end of
-each of their stages with :func:`mark`. Inside ``with record() as rec:``
-every mark synchronises the device, appends the host time since the
-previous mark to ``rec.spans[name]`` (and adds it to ``rec.ms[name]``) and
-appends the value passed with it to ``rec.values[name]``. Outside a
-recording a mark costs one check. Stage spans end in a synchronize, so
-recorded runs are slower than plain ones; time whole runs without
-recording.
+**Units and spans.** A unit is one train step (``step``,
+``make_train_step``'s ``train_step``), one forward outside a step
+(``frame``, ``PoseSplatter.forward``) or one K-step call (``multi_step``,
+``MultiStep``). Inside a unit each stage is a span with its own start and
+end, a parent and the unit's id: ``frame`` (a forward inside a step) with
+``carve``, ``unets``, ``select_head``, ``binning`` (with the projection
+and depth sort in 3D), ``kernel`` and ``untile``; then ``loss``,
+``loss_bwd`` (autograd down to the compositor's backward), ``kernel_bwd``,
+``backward`` (autograd below the renderer) and ``optimizer``; and ``sync``
+around every blocking read of the device (:func:`blocking`). Spans are kept
+while
+
+- ``with stages.trace(device):`` is active, the operator's switch for a
+  long training run or a served recording; or
+- a ``torch.profiler`` session records. Each span is then also a range
+  ``pose_splatter/<name>`` (as ``record_function`` makes one), so the
+  profiler's trace (``utils/profiling.trace``, ``scripts/profile.py
+  --trace``, opened in TensorBoard or Perfetto) shows the stages beside the
+  kernels they launched, on the device trace's clock.
+
+Neither synchronises. A traced stretch starts with one synchronise, an
+anchor event and the anchor's host time; from then on each boundary
+records a timing CUDA event on the current stream and the host's
+``perf_counter``, and nothing reads the device until the record is read.
+:func:`last_trace` resolves the most recent stretch: for each unit its
+spans (host start and end in ms from the anchor, device ms, and ``lag``:
+the device's time at the span's end, on the host clock, minus the host's;
+a stage that ends with ``lag`` near 0 is one in which the device waited
+for the host's launches) and its counters. Units are kept in a ring of
+:data:`RING_UNITS`. Inside a CUDA graph capture nothing is recorded: a
+K-step call's replays are one ``multi_step`` span. With no trace,
+profiler or recording active, a boundary costs one check: no event, no
+clock read, no allocation.
+
+**Counters**, a unit: ``host_syncs``, the blocking reads of the device the
+program made (counted always, process-wide in :data:`host_syncs`);
+``sync_wait_ms``, the host ms blocked in them (the ``sync`` spans, while
+tracing); the binning's rows kept and dropped, a record a call
+(:func:`binned`; device tensors until the record is read); and the
+compositors' launches, the difference of each counter registered with
+:func:`count_launches` across the unit.
+
+**Recording.** Inside ``with record() as rec:`` every span end and every
+bare :func:`mark` synchronises the device, appends the host time since the
+previous mark to ``rec.spans[name]`` and the value passed with it to
+``rec.values[name]``. Recorded runs are slower than plain ones; units run
+under a recording are flagged synchronised and :func:`last_trace` leaves
+them out.
+
+    with stages.trace("cuda"):
+        for batch in batches:
+            state, metrics = train_step(state, batch)
+    t = stages.last_trace()
+    t.stage_ms("backward"), t.median("sync_wait_ms"), t.units[-1]["spans"]
 """
 
 from __future__ import annotations
 
+import itertools
+import statistics
 import time
+from collections import deque
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+import torch.autograd.profiler as _profiler
 
+RING_UNITS = 1024
+RANGE_PREFIX = "pose_splatter/"
+# A profiler range as ``record_function`` makes it, at a tenth of its cost.
+_range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 _profiler.record_function)
+
+# Blocking reads of the device made through :func:`blocking` (always on).
+host_syncs = 0
+
+
+# -- the synchronising recording ---------------------------------------------
 
 class Recording:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self.ms: Dict[str, float] = {}
         self.spans: Dict[str, List[float]] = {}
         self.values: Dict[str, List[Any]] = {}
         self._t = time.perf_counter()
@@ -35,9 +95,7 @@ class Recording:
     def mark(self, name: str, value: Any = None):
         self._sync()
         now = time.perf_counter()
-        span = 1e3 * (now - self._t)
-        self.ms[name] = self.ms.get(name, 0.0) + span
-        self.spans.setdefault(name, []).append(span)
+        self.spans.setdefault(name, []).append(1e3 * (now - self._t))
         self._t = now
         if value is not None:
             self.values.setdefault(name, []).append(value)
@@ -52,7 +110,8 @@ def recording() -> bool:
 
 
 def mark(name: str, value: Any = None):
-    """End of stage ``name``; ``value`` is kept while recording."""
+    """A recording's mark with no span: the end of stage ``name``;
+    ``value`` is kept while recording."""
     if _active is not None:
         _active.mark(name, value)
 
@@ -71,3 +130,298 @@ def record(device="cuda") -> Iterator[Recording]:
         yield rec
     finally:
         _active = None
+
+
+# -- spans -------------------------------------------------------------------
+
+class _Stretch:
+    """A traced stretch: its device and the anchor of its clock."""
+
+    __slots__ = ("device", "event", "host", "streams")
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.event = None
+        self.streams: Dict[int, torch.cuda.Stream] = {}
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", self.device.index
+                                       if self.device.index is not None
+                                       else torch.cuda.current_device())
+            torch.cuda.synchronize(self.device)
+            self.event = _event()
+            self.event.record(self.stream())
+        self.host = time.perf_counter()
+
+    def stream(self) -> torch.cuda.Stream:
+        """The device's current stream, found by its handle: building the
+        Stream object, as ``Event.record()`` does each call, costs twice the
+        record itself."""
+        raw = torch._C._cuda_getCurrentRawStream(self.device.index)
+        s = self.streams.get(raw)
+        if s is None:
+            s = self.streams[raw] = torch.cuda.current_stream(self.device)
+        return s
+
+
+class _Span:
+    __slots__ = ("name", "parent", "t0", "t1", "e0", "e1", "range")
+
+    def __init__(self, name: str, parent: int):
+        self.name, self.parent = name, parent
+        self.t1 = self.e1 = self.range = None
+
+
+class _Unit:
+    __slots__ = ("id", "stretch", "synced", "spans", "open", "events",
+                 "syncs", "launches", "binning")
+
+    def __init__(self, stretch: Optional[_Stretch], synced: bool):
+        self.id = next(_ids)
+        self.stretch, self.synced = stretch, synced
+        self.spans: List[_Span] = []
+        self.open: List[int] = []
+        self.events: list = []
+        self.syncs = host_syncs
+        self.launches = {k: f.launches for k, f in _launch_counters.items()}
+        self.binning: list = []
+
+
+_unit: Optional[_Unit] = None       # the open unit: what every boundary checks
+_trace: Optional[_Stretch] = None   # the stretch of an active trace()
+_pstretch: Optional[_Stretch] = None  # the stretch of the profiled units
+_ring: deque = deque(maxlen=RING_UNITS)
+_pool: list = []                    # timing events of units that left the ring
+_ids = itertools.count()
+_launch_counters: Dict[str, Callable] = {}
+
+
+def _event():
+    return _pool.pop() if _pool else torch.cuda.Event(enable_timing=True)
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _stamp(u: _Unit):
+    e = None
+    if u.stretch is not None and u.stretch.event is not None:
+        e = _event()
+        e.record(u.stretch.stream())
+        u.events.append(e)
+    return time.perf_counter(), e
+
+
+def _begin(name: str, at=None):
+    u = _unit
+    if _capturing():
+        return
+    sp = _Span(name, u.open[-1] if u.open else -1)
+    if _profiler._is_profiler_enabled:
+        sp.range = _range(RANGE_PREFIX + name)
+        sp.range.__enter__()
+    sp.t0, sp.e0 = at or _stamp(u)
+    u.open.append(len(u.spans))
+    u.spans.append(sp)
+
+
+def _close(name: str):
+    """Close the innermost open span ``name`` and any left open inside it;
+    returns the boundary, or None where no such span is open."""
+    global _unit
+    u = _unit
+    if _capturing():
+        return None
+    for i in range(len(u.open) - 1, -1, -1):
+        if u.spans[u.open[i]].name == name:
+            break
+    else:
+        return None
+    at = _stamp(u)
+    for j in reversed(u.open[i:]):
+        sp = u.spans[j]
+        sp.t1, sp.e1 = at
+        if sp.range is not None:
+            sp.range.__exit__(None, None, None)
+    del u.open[i:]
+    if not u.open:
+        u.syncs = host_syncs - u.syncs
+        u.launches = {k: f.launches - u.launches[k]
+                      for k, f in _launch_counters.items()}
+        if len(_ring) == _ring.maxlen:
+            _pool.extend(_ring[0].events)
+        _ring.append(u)
+        _unit = None
+    return at
+
+
+def _open_unit(name: str):
+    global _unit, _pstretch
+    if _capturing():
+        return
+    stretch = None
+    if _active is not None:
+        _pstretch = None  # a synchronised unit ends a profiled stretch
+    elif _trace is not None:
+        stretch = _trace
+    else:
+        if _pstretch is None:
+            _pstretch = _Stretch("cuda" if torch.cuda.is_initialized()
+                                 else "cpu")
+        stretch = _pstretch
+    _unit = _Unit(stretch, synced=_active is not None)
+    _begin(name)
+
+
+class Scope:
+    """``with Scope("frame"):`` a unit's root span, or inside an open unit
+    a span of that name. Make one a call site, once."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _pstretch
+        if _unit is not None:
+            _begin(self.name)
+        elif (_active is not None or _trace is not None
+              or _profiler._is_profiler_enabled):
+            _open_unit(self.name)
+        elif _pstretch is not None:
+            _pstretch = None  # a plain unit ends a profiled stretch
+
+    def __exit__(self, *exc):
+        if _unit is not None:
+            _close(self.name)
+        return False
+
+
+def begin(name: str):
+    """Start of stage ``name`` inside the open unit."""
+    if _unit is not None:
+        _begin(name)
+
+
+def end(name: str, value: Any = None, then: Optional[str] = None):
+    """End of stage ``name`` (the recording's mark, with ``value``); with
+    ``then``, stage ``then`` starts at the same boundary."""
+    if _unit is not None or _active is not None:
+        if _active is not None:
+            _active.mark(name, value)
+        if _unit is not None:
+            at = _close(name)
+            if then is not None and _unit is not None:
+                _begin(then, at)
+
+
+def blocking(read: Callable, *args, **kwargs):
+    """``read(*args, **kwargs)``, a call that waits for the device: counted
+    in :data:`host_syncs`; inside a unit, a ``sync`` span."""
+    global host_syncs
+    host_syncs += 1
+    if _unit is None:
+        return read(*args, **kwargs)
+    _begin("sync")
+    try:
+        return read(*args, **kwargs)
+    finally:
+        if _unit is not None:
+            _close("sync")
+
+
+def to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype, device)``. A host value's copy to a CUDA
+    device waits for the device's queue, so it goes through
+    :func:`blocking`."""
+    if device.type == "cuda" and not (torch.is_tensor(x) and x.is_cuda):
+        return blocking(torch.as_tensor, x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def binned(counts: torch.Tensor, overflow: torch.Tensor):
+    """A binning call's record: rows binned a tile, rows dropped."""
+    if _unit is not None:
+        _unit.binning.append((counts, overflow))
+
+
+def count_launches(name: str, fn: Callable):
+    """Report the change of ``fn.launches`` across each unit as
+    ``launches[name]``."""
+    _launch_counters[name] = fn
+
+
+@contextmanager
+def trace(device="cuda") -> Iterator[None]:
+    """Keep the spans of the units run inside the block (not re-entrant);
+    read them with :func:`last_trace`."""
+    global _trace
+    if _trace is not None:
+        raise RuntimeError("a stage trace is already active")
+    _trace = _Stretch(device)
+    try:
+        yield
+    finally:
+        _trace = None
+
+
+# -- reading the record ------------------------------------------------------
+
+class StageTrace:
+    """The resolved units of one traced stretch (see the module's
+    docstring); ``units`` in order, each a dict."""
+
+    def __init__(self, units: List[_Unit]):
+        st = units[0].stretch
+        if st.event is not None:
+            torch.cuda.synchronize(st.device)
+        self.units = [self._resolve(u, st) for u in units]
+
+    @staticmethod
+    def _resolve(u: _Unit, st: _Stretch) -> dict:
+        spans = []
+        for sp in u.spans:
+            host_ms = 1e3 * (sp.t1 - sp.t0)
+            if st.event is not None:
+                device_ms = sp.e0.elapsed_time(sp.e1)
+                lag = st.event.elapsed_time(sp.e1) - 1e3 * (sp.t1 - st.host)
+            else:  # the CPU runs each operation as the host issues it
+                device_ms, lag = host_ms, 0.0
+            spans.append(dict(name=sp.name, parent=sp.parent, unit=u.id,
+                              start_ms=1e3 * (sp.t0 - st.host),
+                              end_ms=1e3 * (sp.t1 - st.host),
+                              host_ms=host_ms, device_ms=device_ms,
+                              lag_ms=lag))
+        kept = sum(int(c.long().sum()) for c, _ in u.binning)
+        dropped = sum(int(o) for _, o in u.binning)
+        return dict(id=u.id, name=u.spans[0].name, spans=spans,
+                    host_syncs=u.syncs,
+                    sync_wait_ms=sum(s["host_ms"] for s in spans
+                                     if s["name"] == "sync"),
+                    launches=dict(u.launches), binning_calls=len(u.binning),
+                    binned_rows=kept, dropped_rows=dropped)
+
+    def stage_ms(self, name: str) -> Optional[float]:
+        """Median over the units holding span ``name`` of its device ms
+        a unit."""
+        per = [sum(s["device_ms"] for s in u["spans"] if s["name"] == name)
+               for u in self.units
+               if any(s["name"] == name for s in u["spans"])]
+        return statistics.median(per) if per else None
+
+    def median(self, counter: str) -> Optional[float]:
+        """Median over the units of a unit's counter."""
+        vals = [u[counter] for u in self.units]
+        return statistics.median(vals) if vals else None
+
+
+def last_trace() -> Optional[StageTrace]:
+    """The most recent stretch of units that were not synchronised, read
+    (this waits for the device), or None."""
+    units = [u for u in _ring if not u.synced]
+    if not units:
+        return None
+    st = units[-1].stretch
+    return StageTrace([u for u in units if u.stretch is st])

@@ -51,7 +51,7 @@ def render_novel_view(
         centroid = means.mean(dim=0, keepdim=True)
         means = (means - centroid) @ yaw_rotation(angle_offset, dev).T + centroid
         means = means + model._tensor(delta_xyz)
-        stages.mark("select_head", g)
+        stages.end("select_head", g)
 
         rgb, _ = model.splat(
             means,

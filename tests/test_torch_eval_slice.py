@@ -110,9 +110,9 @@ def test_stage_marks_record_the_forward(setup):
         with pytest.raises(RuntimeError, match="already active"):
             with stages.record("cpu"):
                 pass
-    assert list(rec.ms) == ["carve", "unets", "select_head", "binning",
-                            "kernel", "untile"]
-    assert all(v >= 0 for v in rec.ms.values())
+    assert list(rec.spans) == ["carve", "unets", "select_head", "binning",
+                               "kernel", "untile"]
+    assert all(x >= 0 for v in rec.spans.values() for x in v)
     assert all(len(v) == 1 for v in rec.spans.values())
     (b,) = rec.values["binning"]
     assert b.counts.numel() == C * b.n_ty * b.n_tx
