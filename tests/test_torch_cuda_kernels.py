@@ -17,7 +17,9 @@ against the CPU's and its CUDA-graph capture in kernel and tiled mode,
 and the O(P) ``composite_pixels`` against autograd through its scan.
 The carve's visibility cap on the card against the CPU, a remat train
 step against one without remat, and a captured step with the cap and
-remat against its eager twin. ResNet18, LPIPS, one frame of the
+remat against its eager twin. The final U-Net's backward at the presets'
+crop with cuDNN's autotuning: off the direct weight-gradient kernel and
+under 10 ms on the card. ResNet18, LPIPS, one frame of the
 visual-pose features and the preprocessing carves on the card against the
 CPU, and the forward kernel on a spherical rig's binned arrays.
 
@@ -985,6 +987,48 @@ def test_captured_cap_remat_step_matches_the_eager_step(dev, deterministic_cudnn
     for (k, x), y in zip(a.net.state_dict().items(),
                          b.net.state_dict().values()):
         assert torch.equal(x, y), (k, float((x - y).abs().max()))
+
+
+def test_final_unet_backward_is_autotuned(dev):
+    """The final Unet3D at the presets' crop (96×80×64), one train-mode
+    step's backward after a warm-up step: with cuDNN's autotuning, which
+    ``resolve_device`` turns on, cuDNN's direct ``wgrad2d_grouped_direct``
+    kernel takes under 1 ms of the backward (about 44 ms under the
+    heuristic's choice on an H100; autotuning keeps it only where it is the
+    fastest candidate, on ``upconv2``'s small weight gradient), and the
+    backward's device time stays under 30 ms (about 55 ms under the
+    heuristic)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pose_splatter_torch.models.unet3d import Unet3D
+    from pose_splatter_torch.utils.device import resolve_device
+
+    resolve_device(dev)
+    assert torch.backends.cudnn.benchmark and not torch.backends.cudnn.allow_tf32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net = Unet3D(4, 8, 8, input_size=(96, 80, 64)).to(dev)
+    x = torch.rand(1, 4, 96, 80, 64, device=dev, generator=gen)
+
+    def loss():
+        return net(x, {}).square().mean()
+
+    loss().backward()  # the warm-up step times cuDNN's candidates
+    out = loss()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out.backward()
+        torch.cuda.synchronize()
+    ops = [ev for ev in prof.events()
+           if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    ms = sum(ev.time_range.elapsed_us() for ev in ops) / 1e3
+    direct_ms = sum(ev.time_range.elapsed_us() for ev in ops
+                    if "wgrad2d_grouped_direct" in ev.name) / 1e3
+    print(f"final U-Net backward: {ms:.3f} ms on the card, "
+          f"{direct_ms:.3f} ms of it on the direct kernel")
+    assert ops
+    assert direct_ms < 1.0, direct_ms
+    assert ms < 30.0, ms
 
 
 # ----------------------------------------------------------------------------

@@ -248,6 +248,21 @@ def test_cuda_entry_turns_tf32_off(monkeypatch):
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
+def test_cuda_entry_autotunes_cudnn(monkeypatch):
+    """Trap: without autotuning cuDNN takes its heuristic's first algorithm,
+    a direct kernel for the final U-Net's float32 conv3d weight gradients.
+    An entry point that takes the card turns cuDNN's autotuning on and
+    leaves TF32 off."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert resolve_device("cuda") == torch.device("cuda")
+    assert torch.backends.cudnn.benchmark
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 def test_ssim_filters_without_tf32(monkeypatch):
     """SSIM's E[x²] − μ² variance estimates need true float32: its filter
     runs with TF32 off even where the caller allowed it, and restores the
