@@ -193,6 +193,10 @@ def select_gaussians(
     from a stable descending sort (``torch.topk`` gives no tie order). The
     sort runs on the float32 total order that ``top_k`` uses, where -0.0
     sorts below +0.0 and positive NaNs above everything.
+
+    Inside a traced unit the call keeps its record (``stages.selected``):
+    the values above the final threshold and the Gaussians kept; more of
+    the first than ``max_n`` is the opacity-starvation regime.
     """
     N = vol0.shape[0]
     if not 1 <= min_n <= max_n <= N:
@@ -219,7 +223,9 @@ def select_gaussians(
     else:
         raise ValueError(f"unknown selection route {route!r}")
     vals = vals_sorted[:max_n]
-    return GaussianSelection(indices=order[:max_n], valid=vals > thr,
+    valid = vals > thr
+    stages.selected(vol0, thr, valid)
+    return GaussianSelection(indices=order[:max_n], valid=valid,
                              probs=torch.sigmoid(vals - mt_t),
                              mask_threshold=mt_t, table_miss=miss)
 

@@ -39,9 +39,14 @@ clock read, no allocation.
 program made (counted always, process-wide in :data:`host_syncs`);
 ``sync_wait_ms``, the host ms blocked in them (the ``sync`` spans, while
 tracing); the binning's rows kept and dropped, a record a call
-(:func:`binned`; device tensors until the record is read); and the
-compositors' launches, the difference of each counter registered with
-:func:`count_launches` across the unit.
+(:func:`binned`; device tensors until the record is read); the
+selection's voxels above its final threshold and Gaussians kept, a record
+a call (:func:`selected`; device tensors until read); the largest
+``allocated_bytes`` of the CUDA caching allocator seen at the unit's span
+boundaries (a host statistic: no synchronise, and the allocator's peak
+statistics are never reset); and the compositors' launches, the
+difference of each counter registered with :func:`count_launches` across
+the unit.
 
 **Recording.** Inside ``with record() as rec:`` every span end and every
 bare :func:`mark` synchronises the device, appends the host time since the
@@ -173,7 +178,7 @@ class _Span:
 
 class _Unit:
     __slots__ = ("id", "stretch", "synced", "spans", "open", "events",
-                 "syncs", "launches", "binning")
+                 "syncs", "launches", "binning", "selection", "allocated")
 
     def __init__(self, stretch: Optional[_Stretch], synced: bool):
         self.id = next(_ids)
@@ -184,6 +189,8 @@ class _Unit:
         self.syncs = host_syncs
         self.launches = {k: f.launches for k, f in _launch_counters.items()}
         self.binning: list = []
+        self.selection: list = []
+        self.allocated: Optional[int] = None
 
 
 _unit: Optional[_Unit] = None       # the open unit: what every boundary checks
@@ -204,12 +211,27 @@ def _capturing() -> bool:
             and torch.cuda.is_current_stream_capturing())
 
 
+def _allocated(device: torch.device) -> Optional[int]:
+    """Bytes the CUDA caching allocator holds in tensors on ``device`` (its
+    host-side statistic, read without waiting for the device); None off
+    CUDA."""
+    if device.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats_as_nested_dict(device)
+    return stats["allocated_bytes"]["all"]["current"]
+
+
 def _stamp(u: _Unit):
     e = None
-    if u.stretch is not None and u.stretch.event is not None:
-        e = _event()
-        e.record(u.stretch.stream())
-        u.events.append(e)
+    st = u.stretch
+    if st is not None:
+        if st.event is not None:
+            e = _event()
+            e.record(st.stream())
+            u.events.append(e)
+        a = _allocated(st.device)
+        if a is not None:
+            u.allocated = max(a, u.allocated or 0)
     return time.perf_counter(), e
 
 
@@ -347,6 +369,17 @@ def binned(counts: torch.Tensor, overflow: torch.Tensor):
         _unit.binning.append((counts, overflow))
 
 
+def selected(values: torch.Tensor, threshold: torch.Tensor,
+             valid: torch.Tensor):
+    """A selection call's record: the values above its final threshold
+    (over every voxel) and the Gaussians it kept, counted on the device
+    only inside an open unit and outside a CUDA graph capture."""
+    if _unit is not None and not _capturing():
+        with torch.no_grad():
+            _unit.selection.append(torch.stack(
+                [(values > threshold).sum(), valid.sum()]))
+
+
 def count_launches(name: str, fn: Callable):
     """Report the change of ``fn.launches`` across each unit as
     ``launches[name]``."""
@@ -396,12 +429,17 @@ class StageTrace:
                               lag_ms=lag))
         kept = sum(int(c.long().sum()) for c, _ in u.binning)
         dropped = sum(int(o) for _, o in u.binning)
+        sel = [[int(x) for x in s.tolist()] for s in u.selection]
         return dict(id=u.id, name=u.spans[0].name, spans=spans,
                     host_syncs=u.syncs,
                     sync_wait_ms=sum(s["host_ms"] for s in spans
                                      if s["name"] == "sync"),
                     launches=dict(u.launches), binning_calls=len(u.binning),
-                    binned_rows=kept, dropped_rows=dropped)
+                    binned_rows=kept, dropped_rows=dropped,
+                    selection_calls=len(sel),
+                    above_threshold=sum(a for a, _ in sel) if sel else None,
+                    gaussians_live=sum(n for _, n in sel) if sel else None,
+                    max_allocated_bytes=u.allocated)
 
     def stage_ms(self, name: str) -> Optional[float]:
         """Median over the units holding span ``name`` of its device ms
@@ -412,8 +450,9 @@ class StageTrace:
         return statistics.median(per) if per else None
 
     def median(self, counter: str) -> Optional[float]:
-        """Median over the units of a unit's counter."""
-        vals = [u[counter] for u in self.units]
+        """Median over the units of a unit's counter (units where it is
+        None, as the selection's where no selection ran, left out)."""
+        vals = [u[counter] for u in self.units if u[counter] is not None]
         return statistics.median(vals) if vals else None
 
 
