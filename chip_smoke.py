@@ -33,8 +33,10 @@ all at once; it fails if a build fails or ptxas reports a spill), then:
    with seeded random weights (PyTorch's default initialisers, kept so the
    scene stays comparable), over synthetic frames of an ellipsoid seen by 6
    cameras: ``render_images_in_memory`` and ``make_eval_step`` through
-   the user-facing entry points, with the forward kernel's launch count read
-   around them, then a per-frame breakdown from the forward's own stage
+   the user-facing entry points, with the forward kernel's and the carve's
+   visibility kernel's launch counts read around them (the latter held to
+   one a frame), then a per-frame breakdown (each forward's visibility
+   launches held to one) from the forward's own stage
    marks (``pose_splatter_torch.utils.stages``) and a kernel-vs-plain check
    on the instance arrays that the forward binned, with how the kernel
    spread over the card there (``split_stats``: chunks walked and evaluated
@@ -42,9 +44,10 @@ all at once; it fails if a build fails or ptxas reports a spill), then:
    ``torch.profiler``, ms beside the one-block-a-tile kernel's it replaced);
 5. 2D train slice: ``train_from_config`` at the same configuration (fresh
    start, lr 1e-4, img_lambda 0.5, ssim_lambda 0.1, batch 1) for K steps on
-   synthetic frames, with both kernels' launch counts read around it and
-   each step's stages recorded; then unrecorded steps, timed whole with the
-   launches read around each; then the backward kernel against its plain
+   synthetic frames, with both kernels' and the carve's visibility kernel's
+   launch counts read around it and each step's stages recorded; then
+   unrecorded steps, timed whole with the launches read around each (each
+   kernel held to one a step); then the backward kernel against its plain
    version on the last step's own instance arrays, ``tbounds`` and loss
    gradient;
 6. 3D eval and 3D train: the same two phases for the 3D Gaussian model,
@@ -100,9 +103,17 @@ all at once; it fails if a build fails or ptxas reports a spill), then:
    voxels): the occupied counts, the carve timed exact, with a cap that
    fits and with the cap N/8 = 61,440 (host-launched, and on the device by
    CUDA-graph replay), each overflow; the
-   fitting cap within 1e-6 of the exact carve; an eval forward with the
-   fitting cap against none; ``make_train_multi_step`` with the cap N/8
-   against eager steps (as phase 7);
+   fitting cap within 1e-6 of the exact carve; the visibility kernel
+   (``csrc/carve_visibility.cu``): one launch a carve, exact and capped,
+   then at the main path's three carve shapes (``dbg_carve_micro.
+   visibility_shapes``: 491,520 voxels at 576x512 and at 288x256,
+   3,932,160 at 1152x1024, 5 cameras, the ellipsoid's sets and random
+   ones) bit for bit against its plain version, its ms host-launched and
+   on the device (CUDA-graph replay) beside the plain version's, its
+   bound from the function's own bytes and that bound with the scratch
+   table's fill; an eval forward with the fitting cap against none;
+   ``make_train_multi_step`` with the cap N/8 against eager steps (as
+   phase 7);
 12. adaptive3d: ``configs/baseline/pigeon_4.json`` as written (4 cameras
    at 656x320, grid 80, crop 80^3, 3D, adaptive camera): ``train_from_
    config`` for 6 steps, 3 steps timed whole, ``render_images_in_memory``
@@ -261,6 +272,7 @@ MS_LOSS_RTOL = 1e-5
 # and of the eval forward with and without the cap (the CPU parity bar).
 CAP_FRAMES = 4
 CAP_ITERS = 10
+VIS_ITERS = 20  # calls a timing of the visibility kernel (and its plain version)
 CAP_TOL = 1e-6
 CAP_FWD_TOL = 1e-4
 # The adaptive phase: pigeon_4.json's 4 cameras; an ellipsoid off the crop's
@@ -721,6 +733,7 @@ def eval_phase(report, key, config, mode, later):
     import torch
 
     from pose_splatter_torch.models.pose_splatter import init_means2d_center
+    from pose_splatter_torch.ops import carving
     from pose_splatter_torch.ops import rasterize as R
     from pose_splatter_torch.ops import rasterize_kernels as K
     from pose_splatter_torch.train.evaluate import (
@@ -766,6 +779,7 @@ def eval_phase(report, key, config, mode, later):
 
     # ---- the main path, with the launch counts zeroed around it ----
     K.composite_instances.launches = 0
+    carving.ray_cast_visibility_pair.launches = 0
     t0 = time.perf_counter()
     rgba = render_images_in_memory(model, data)
     torch.cuda.synchronize()
@@ -775,13 +789,18 @@ def eval_phase(report, key, config, mode, later):
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
     launches = K.composite_instances.launches
+    carve_launches = carving.ray_cast_visibility_pair.launches
     # ---------------------------------------------------------------
     print(f"[{key}] main path: render_images_in_memory {n_frames} frames x "
           f"{VIEWS} views in {1e3 * t_render:.1f} ms, make_eval_step "
           f"{n_frames} frames in {1e3 * t_eval:.1f} ms; composite_fwd "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, carve_visibility {carve_launches}",
+          flush=True)
     if launches <= 0:
         raise AssertionError("the main path never launched composite_fwd")
+    if carve_launches != 2 * n_frames:  # one carve a frame, in each entry
+        raise AssertionError(f"{2 * n_frames} frames made {carve_launches} "
+                             "carve_visibility launches")
     metrics = {k: float(v) for k, v in metrics.items()}
     print(f"eval step: loss {float(loss):.6f} metrics {metrics}", flush=True)
     if rgba.shape != (n_frames, VIEWS, Hc, Wc, 4):
@@ -814,13 +833,16 @@ def eval_phase(report, key, config, mode, later):
         runs = []
         for r in range(3):
             torch.cuda.synchronize()
-            before = K.composite_instances.launches
+            before = (K.composite_instances.launches,
+                      carving.ray_cast_visibility_pair.launches)
             t_all = time.perf_counter()
             rgb_e, alpha_e, overflow_e = model(mask, img, p_3d, angle,
                                                view_idx, return_overflow=True)
             runs.append(sync_ms(t_all))
             if r == 0:
-                per_forward = K.composite_instances.launches - before
+                per_forward = K.composite_instances.launches - before[0]
+                carve_per_forward = (carving.ray_cast_visibility_pair.launches
+                                     - before[1])
         whole = float(np.median(runs))
         with stages.record() as rec:
             model(mask, img, p_3d, angle, view_idx)
@@ -837,11 +859,14 @@ def eval_phase(report, key, config, mode, later):
                    stages_ms=st, gaussians_valid=n_valid,
                    gaussians_selected=int(g["valid"].numel()),
                    overflow=int(overflow_e), instances=int(b.counts.long().sum()),
-                   kernel_launches_per_forward=per_forward, loss_view0=float(tl))
+                   kernel_launches_per_forward=per_forward,
+                   carve_launches_per_forward=carve_per_forward,
+                   loss_view0=float(tl))
         frames_out.append(out)
         print(f"[{key}] frame {i}: forward {whole:.2f} ms (median of "
               f"{', '.join(f'{x:.2f}' for x in runs)}), {per_forward} "
-              f"composite_fwd launch(es) | "
+              f"composite_fwd / {carve_per_forward} carve_visibility "
+              f"launch(es) | "
               + " ".join(f"{k} {v:.2f}" for k, v in st.items())
               + f" ms | gaussians {n_valid}/{g['valid'].numel()} overflow "
               f"{int(overflow_e)} instances {out['instances']} | loss(view "
@@ -850,6 +875,9 @@ def eval_phase(report, key, config, mode, later):
             raise AssertionError("non-finite render")
         if per_forward <= 0:
             raise AssertionError("the forward never launched composite_fwd")
+        if carve_per_forward != 1:
+            raise AssertionError(f"a served frame launched carve_visibility "
+                                 f"{carve_per_forward} times")
         if i == 0:
             # The kernel against its plain version on the instance arrays
             # that the forward itself binned.
@@ -892,7 +920,10 @@ def eval_phase(report, key, config, mode, later):
     if frames_out[0]["gaussians_valid"] < N_GAUSS:
         raise AssertionError("selection did not reach max_n")
     report[key] = dict(
-        launches=launches, render_ms=1e3 * t_render, eval_step_ms=1e3 * t_eval,
+        launches=launches, carve_launches=carve_launches,
+        carve_launches_per_forward=[f["carve_launches_per_forward"]
+                                    for f in frames_out],
+        render_ms=1e3 * t_render, eval_step_ms=1e3 * t_eval,
         eval_loss=float(loss), eval_metrics=metrics, per_camera=per_cam,
         frames=frames_out, main_path_kernel=slice_kernel,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1535,6 +1566,7 @@ def train_phase(report, key, config, k_steps, later):
     step's own arrays."""
     import torch
 
+    from pose_splatter_torch.ops import carving
     from pose_splatter_torch.ops import rasterize_kernels as K
     from pose_splatter_torch.train.loop import make_train_step
     from pose_splatter_torch.train.trainer import train_from_config
@@ -1558,6 +1590,7 @@ def train_phase(report, key, config, k_steps, later):
     # ---- the main path, with the launch counts zeroed around it ----
     K.composite_instances.launches = 0
     K.composite_instances_bwd.launches = 0
+    carving.ray_cast_visibility_pair.launches = 0
     t0 = time.perf_counter()
     with stages.record() as rec:
         state, losses, _ = train_from_config(
@@ -1568,6 +1601,7 @@ def train_phase(report, key, config, k_steps, later):
     t_train = time.perf_counter() - t0
     launches = dict(composite_fwd=K.composite_instances.launches,
                     composite_bwd=K.composite_instances_bwd.launches)
+    carve_launches = carving.ray_cast_visibility_pair.launches
     # ---------------------------------------------------------------
     sp = rec.spans
     n = len(sp["optimizer"])
@@ -1599,11 +1633,15 @@ def train_phase(report, key, config, k_steps, later):
           f"{med['step_ms']:.2f} ms = forward {med['forward_ms']:.2f} + "
           f"backward {med['backward_ms']:.2f} + optimizer | stage medians "
           + " ".join(f"{k} {v:.2f}" for k, v in med_stages.items())
-          + f" ms; launches {launches}", flush=True)
+          + f" ms; launches {launches}, carve_visibility {carve_launches} "
+          f"(the steps' and the validation's frames)", flush=True)
     if n != k_steps or state.step != k_steps:
         raise AssertionError(f"{n} steps recorded, state at {state.step}")
     if min(launches.values()) < k_steps:
         raise AssertionError(f"a kernel was not launched every step: {launches}")
+    if carve_launches < k_steps:
+        raise AssertionError(f"{k_steps} steps made {carve_launches} "
+                             "carve_visibility launches")
     if not all(np.isfinite(s["loss"]) for s in steps) or not np.isfinite(
             losses[-1]).all():
         raise AssertionError("non-finite training loss")
@@ -1622,20 +1660,25 @@ def train_phase(report, key, config, k_steps, later):
     for batch in extra_batches * EXTRA_PASSES:
         torch.cuda.synchronize()
         before = (K.composite_instances.launches,
-                  K.composite_instances_bwd.launches)
+                  K.composite_instances_bwd.launches,
+                  carving.ray_cast_visibility_pair.launches)
         t = time.perf_counter()
         state, m = step_fn(state, batch)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t)
-        extra.append(dict(step_ms=ms, loss=float(m["total"]),
-                          fwd_launches=K.composite_instances.launches - before[0],
-                          bwd_launches=K.composite_instances_bwd.launches - before[1]))
+        extra.append(dict(
+            step_ms=ms, loss=float(m["total"]),
+            fwd_launches=K.composite_instances.launches - before[0],
+            bwd_launches=K.composite_instances_bwd.launches - before[1],
+            carve_launches=carving.ray_cast_visibility_pair.launches - before[2]))
     whole_ms = float(np.median([e["step_ms"] for e in extra]))
     print(f"[{key}] unrecorded steps: " + "; ".join(
         f"{e['step_ms']:.2f} ms, loss {e['loss']:.6f}, composite_fwd "
-        f"{e['fwd_launches']} / composite_bwd {e['bwd_launches']} launch(es)"
+        f"{e['fwd_launches']} / composite_bwd {e['bwd_launches']} / "
+        f"carve_visibility {e['carve_launches']} launch(es)"
         for e in extra) + f"; median {whole_ms:.2f} ms", flush=True)
-    if any(e["fwd_launches"] != 1 or e["bwd_launches"] != 1 for e in extra):
+    if any(e["fwd_launches"] != 1 or e["bwd_launches"] != 1
+           or e["carve_launches"] != 1 for e in extra):
         raise AssertionError("a train step did not launch each kernel once")
     busy = {}
 
@@ -1707,7 +1750,8 @@ def train_phase(report, key, config, k_steps, later):
     if max(s["gaussians"] for s in steps) < N_GAUSS:
         raise AssertionError("selection never reached max_n")
     report[key] = dict(
-        launches=launches, train_from_config_s=t_train, steps=steps,
+        launches=launches, carve_launches=carve_launches,
+        train_from_config_s=t_train, steps=steps,
         median_after_warmup=med, stage_medians_ms=med_stages,
         unrecorded_steps=extra, unrecorded_median_ms=whole_ms,
         step_device_busy=busy, epoch_losses=losses,
@@ -2319,6 +2363,37 @@ def record_phase(report):
 # checkpoints across the two packages.
 # ----------------------------------------------------------------------------
 
+def visibility_row(vis, main, m2, m3):
+    """The kernels line's row of ``csrc/carve_visibility.cu``: its launches
+    on the main path (``main``: the train and eval phases' reports; a
+    train step's and a served frame's, each held to one, and the
+    K-step calls') and, at each carve shape (the ellipsoid's sets), ms a
+    call host-launched and on the device, the plain version's, the bound
+    of the function's own bytes and the one with the scratch table's
+    fill; unsuffixed, those of the 2D north star's shape."""
+    rows = {r["shape"]: r for r in vis["rows"] if r["sets"] == "ellipsoid"}
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_with_fill_ms",
+            "occupied")
+    t2, e2, t3, e3 = (main[k] for k in ("train_phase", "slice_phase",
+                                        "train3d_phase", "eval3d_phase"))
+    return dict(
+        name="carve_visibility", route="cuda",
+        source="pose_splatter_torch/csrc/carve_visibility.cu",
+        replaces=None,
+        launches=[e["carve_launches"] for e in t2["unrecorded_steps"]],
+        launches_eval_path=e2["carve_launches_per_forward"],
+        launches_3d_train=[e["carve_launches"]
+                           for e in t3["unrecorded_steps"]],
+        launches_3d_eval=e3["carve_launches_per_forward"],
+        launches_train_from_config=t2["carve_launches"],
+        launches_eval_entry_points=e2["carve_launches"],
+        launches_multistep_2d=m2["launches"]["carve_visibility"],
+        launches_multistep_3d=m3["launches"]["carve_visibility"],
+        bit_equal=vis["bit_equal"], library_ms=None,
+        **{k: rows["2d_576x512"][k] for k in keys},
+        **{f"{k}_{shape}": r[k] for shape, r in rows.items() for k in keys})
+
+
 def carve_cap_phase(report, later):
     """(a) ``carve_volume`` at the 2D north star's crop (96x80x64 = 491,520
     voxels) on the phase's synthetic frames: the occupied counts, then the
@@ -2327,15 +2402,19 @@ def carve_cap_phase(report, later):
     cap N/8 = 61,440, each with its overflow, by CUDA events around calls
     (the host launches them) and on the device (calls captured in a CUDA
     graph and replayed: the carve holds no read-back); the cap that fits within
-    CAP_TOL of the exact carve with the occupancy and overflow exact. Then
-    one eval forward of 6 views with the fitting cap against the forward
+    CAP_TOL of the exact carve with the occupancy and overflow exact; the
+    visibility kernel's launches in two carves and the kernel at the main
+    path's carve shapes against its plain version (``visibility_shapes``).
+    Then one eval forward of 6 views with the fitting cap against the forward
     without it, and ``make_train_multi_step`` with the cap N/8 (8 steps a
     call, one captured step replayed) against 8 eager steps
     (``multistep_phase``)."""
     import torch
 
+    from pose_splatter_torch.ops import carving
     from pose_splatter_torch.ops import rasterize_kernels as K
     from pose_splatter_torch.ops.carving import carve_volume
+    from pose_splatter_torch.scripts import dbg_carve_micro as carve_micro
     from pose_splatter_torch.train.loop import create_train_state
     from pose_splatter_torch.train.trainer import build_model
 
@@ -2398,6 +2477,23 @@ def carve_cap_phase(report, later):
               f"overflow {r['overflow']}; max|carve - exact| "
               f"{r['max_abs_diff_from_exact']:.3g}, occupancy equal "
               f"{occ_equal}, bit-equal {r['bit_equal']}", flush=True)
+    # ---- the visibility kernel: a carve's launches, then the kernel at
+    # the main path's three carve shapes against its plain version ----
+    before = carving.ray_cast_visibility_pair.launches
+    carve(0, None)
+    carve(0, fit)
+    torch.cuda.synchronize()
+    vis_launches = carving.ray_cast_visibility_pair.launches - before
+    vis_rows = carve_micro.visibility_shapes(
+        "cuda", VIS_ITERS, device_timer=lambda fn: graph_ms(fn, VIS_ITERS, 3))
+    vis = dict(launches_two_carves=vis_launches, rows=vis_rows,
+               bit_equal=all(r["bit_equal"] for r in vis_rows))
+    print(f"[carve_cap] carve_visibility launches in an exact and a capped "
+          f"carve: {vis_launches}; the kernel bit-equal to its plain version "
+          f"at every shape: {vis['bit_equal']}", flush=True)
+    if vis_launches != 2 or not vis["bit_equal"]:
+        raise AssertionError(f"[carve_cap] the visibility kernel: {vis}")
+
     f_run = runs["fits"]
     if any(f_run["overflow"]) or not f_run["occupancy_equal"] or not (
             f_run["max_abs_diff_from_exact"] <= CAP_TOL):
@@ -2440,7 +2536,8 @@ def carve_cap_phase(report, later):
     report["carve_cap_phase"] = out = dict(
         voxels=N, occupied=counts, caps=dict(fits=fit, n_over_8=cap_prod),
         runs=runs, eval_max_abs_diff=fwd_diff, eval_bit_equal=fwd_equal,
-        eval_launches=eval_launches, multistep_launches=ms["launches"])
+        eval_launches=eval_launches, multistep_launches=ms["launches"],
+        visibility=vis)
     return out
 
 
@@ -3792,8 +3889,10 @@ def main(argv=None) -> int:
     from pose_splatter_torch.data import native
 
     names = (("dyngather",) if args.gather_only else
-             ("composite_fwd", "composite_bwd") if args.record else
-             ("composite_fwd", "composite_bwd", "dyngather"))
+             ("composite_fwd", "composite_bwd", "carve_visibility")
+             if args.record else
+             ("composite_fwd", "composite_bwd", "carve_visibility",
+              "dyngather"))
     t0 = time.perf_counter()
     # One nvcc a source and g++ for the native decode, all at once; a failed
     # build raises here.
@@ -4001,7 +4100,7 @@ def main(argv=None) -> int:
              ms_tile_step=pk["bwd_ms"], plain_ms_tile_step=pk["bwd_plain_ms"],
              bound_ms_tile_step=pk["bwd_bound"]["bound_ms"],
              bound_by_tile_step=pk["bwd_bound"]["bound_by"]),
-        *gather_rows]}
+        *gather_rows, visibility_row(cap["visibility"], report, m2, m3)]}
     report["result"] = kernels
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(kernels))

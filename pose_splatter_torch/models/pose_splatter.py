@@ -13,7 +13,7 @@ With ``adaptive_camera`` each frame brings its own intrinsics for the
 observed views (``temp_K``) and a triangulated seed from a host hook
 (:meth:`PoseSplatter.make_adaptive_fn`): the mask is carved through
 ``temp_K`` around the seed, and the render uses ``temp_K`` too.
-``carve_visibility_cap`` sizes the carve's compacted visibility sort;
+``carve_visibility_cap`` sizes the carve's compacted visibility pair;
 ``remat_unets`` recomputes each U-Net's activations in the backward
 (``torch.utils.checkpoint``).
 """

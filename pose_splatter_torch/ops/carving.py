@@ -12,17 +12,25 @@ reference's whitening and binarisation of carved volumes.
 Counterpart of ``pose_splatter_tpu/ops/carving.py::carve_volume``: the
 nearest-pixel gathers (one fused 4-channel gather when mask and color share
 intrinsics, a separate mask projection for the adaptive camera's
-``K_mask``), then frontmost-voxel visibility for both carve thresholds from
-one sort per camera, visibility-weighted colors, and the two thresholds
-averaged into a ``[4, n1, n2, n3]`` volume.
+``K_mask``), then frontmost-voxel visibility for both carve thresholds,
+visibility-weighted colors, and the two thresholds averaged into a
+``[4, n1, n2, n3]`` volume.
 
-The JAX code sorts by (pixel, distance) with ``lax.sort(num_keys=2)``,
-stable in the voxel index. Here the two keys are packed into one int64
-(pixel in the high word, the float32 bit pattern of the non-negative
-distance in the low word, which orders like the float) and sorted stably,
-which gives the same order and exactly one winner per pixel.
+The JAX code finds the visible voxels by sorting by (pixel, distance) with
+``lax.sort(num_keys=2)``, stable in the voxel index, and scanning each
+pixel's segment for its first occupied voxel. Here
+:func:`ray_cast_visibility_pair` finds the same voxels with no sort and no
+scan: each occupied voxel's key packs the float32 bit pattern of its
+non-negative distance (which orders like the float) over its voxel index,
+and the voxel wins its pixel iff its key is the pixel's least, which is
+the first occupied voxel of the pixel's segment in the sort's order. On the
+card one hand-written kernel (``csrc/carve_visibility.cu``) takes the
+pixels' minima with 64-bit ``atomicMin``; on the CPU
+:func:`visibility_pair_ref`, its plain version, takes them with
+``scatter_reduce("amin")``. A minimum does not depend on the order it is
+taken in, so both give the JAX sort's booleans bit for bit.
 
-With ``visibility_cap`` the visibility sort runs on a static-shape
+With ``visibility_cap`` the visibility pair runs on a static-shape
 compaction of the occupied set (:func:`compact_occupied`). Nothing there
 reads a device value back to the host, so a CUDA graph can capture it, and
 nothing scatters to a shared sentinel: the compaction is a search of the
@@ -32,11 +40,13 @@ voxels by a gather.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from pose_splatter_torch.utils import stages
 from pose_splatter_torch.utils.geometry import (
     camera_positions,
     project_points,
@@ -163,37 +173,117 @@ def ray_cast_visibility(
     return frontmost_visible(dists, flat, occupied, height * width, method)
 
 
-def ray_cast_visibility_pair(
-    dists: torch.Tensor,  # [C, N] voxel-to-camera distances (>= 0)
-    flat: torch.Tensor,   # [C, N] flattened pixel indices
+NO_KEY = torch.iinfo(torch.int64).max  # above every packed key
+
+
+def visibility_pair_ref(
+    dists: torch.Tensor,  # [C, N] float32 voxel-to-camera distances (>= 0)
+    flat: torch.Tensor,   # [C, N] int64 flattened pixel indices
     occ1: torch.Tensor,   # [N] bool (first threshold's occupied set)
     occ2: torch.Tensor,   # [N] bool (second threshold's occupied set)
+    n_pixels: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Frontmost-occupied-voxel visibility for both carve thresholds.
+    """Plain PyTorch version of ``csrc/carve_visibility.cu``: each voxel's
+    key ``(float_bits(dist) << 32) | n``, each pixel's least key over an
+    occupied set by ``scatter_reduce_("amin")`` into a ``[C, n_pixels]``
+    table of ``NO_KEY``, and a voxel visible iff it is in the set and its
+    key is its pixel's least."""
+    N = dists.shape[1]
+    key = (dists.view(torch.int32).long() << 32) | torch.arange(
+        N, device=dists.device)
+    out = []
+    for occ in (occ1, occ2):
+        table = torch.full((dists.shape[0], n_pixels), NO_KEY,
+                           dtype=torch.int64, device=dists.device)
+        table.scatter_reduce_(1, flat, torch.where(occ, key, NO_KEY), "amin",
+                              include_self=True)
+        out.append(occ & (torch.gather(table, 1, flat) == key))
+    return out[0], out[1]
 
-    One stable sort per camera by (pixel, distance); within each pixel
-    segment the first voxel of each occupied set is the visible one
-    (cumsum + segmented cummax, as ``carving.py:133-173``).
-    """
+
+def _check_pair(dists, flat, occ1, occ2):
+    """Device, dtype, shape and contiguity checks of the pair's inputs
+    (nothing is read from the device); returns (C, N)."""
+    if dists.dim() != 2:
+        raise ValueError(f"dists has shape {tuple(dists.shape)}, expected [C, N]")
     C, N = dists.shape
-    dist_bits = dists.contiguous().view(torch.int32).long()
-    key = (flat.long() << 32) | dist_bits
-    _, order = torch.sort(key, dim=1, stable=True)  # [C, N]
-    p_s = torch.gather(flat, 1, order)
-    first = torch.ones_like(p_s, dtype=torch.bool)
-    first[:, 1:] = p_s[:, 1:] != p_s[:, :-1]
+    if N >= 1 << 32:
+        raise ValueError(f"{N} voxels: the key's low word holds fewer than 2^32")
+    if C > 65535:
+        raise ValueError(f"{C} cameras: the kernel takes at most 65535")
+    for name, x, dtype, shape in (("dists", dists, torch.float32, (C, N)),
+                                  ("flat", flat, torch.int64, (C, N)),
+                                  ("occ1", occ1, torch.bool, (N,)),
+                                  ("occ2", occ2, torch.bool, (N,))):
+        if x.device != dists.device:
+            raise ValueError(f"{name} is on {x.device}, dists on {dists.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return C, N
 
-    def first_occupied(occ):
-        o = occ.long()[order]  # [C, N] occupancy in sorted order
-        excl = torch.cumsum(o, dim=1) - o
-        seg_base = torch.cummax(
-            torch.where(first, excl, torch.full_like(excl, -1)), dim=1).values
-        vis_s = (o > 0) & (excl == seg_base)
-        vis = torch.empty_like(vis_s)
-        vis.scatter_(1, order, vis_s)  # order is a permutation per camera
-        return vis
 
-    return first_occupied(occ1) & occ1[None, :], first_occupied(occ2) & occ2[None, :]
+def _visibility_entry():
+    """``csrc/carve_visibility.cu``'s C entry, built (if needed), loaded
+    and bound at first launch."""
+    from pose_splatter_torch.ops import _build
+
+    fn = _build.load("carve_visibility").carve_visibility
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p] * 6 + [ctypes.c_longlong] * 3 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ray_cast_visibility_pair(
+    dists: torch.Tensor,  # [C, N] float32 voxel-to-camera distances (>= 0)
+    flat: torch.Tensor,   # [C, N] int64 flattened pixel indices
+    occ1: torch.Tensor,   # [N] bool (first threshold's occupied set)
+    occ2: torch.Tensor,   # [N] bool (second threshold's occupied set)
+    n_pixels: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frontmost-occupied-voxel visibility for both carve thresholds
+    (``carving.py:133-173``): [C, N] bool each, voxel n visible from camera
+    c iff it is in the set and is the set's first voxel on its pixel in
+    (distance, voxel index) order; ties in distance go to the lower index.
+
+    ``n_pixels`` is the image's H·W (every ``flat`` lies below it). CPU
+    tensors run :func:`visibility_pair_ref`; CUDA tensors launch
+    ``csrc/carve_visibility.cu`` on the current stream (a memset and two
+    kernels into outputs and scratch allocated here; nothing is read back,
+    so a CUDA graph can capture the call) and count it in
+    ``ray_cast_visibility_pair.launches``. The two are bit-equal. The
+    checks read shapes only: ``flat`` must lie in [0, ``n_pixels``), as
+    ``_pixel_indices`` clamps it.
+    """
+    C, N = _check_pair(dists, flat, occ1, occ2)
+    if dists.device.type == "cpu":
+        return visibility_pair_ref(dists, flat, occ1, occ2, n_pixels)
+    if dists.device.type != "cuda":
+        raise ValueError(f"unsupported device {dists.device}")
+    dev = dists.device
+    vis = torch.empty((2, C, N), dtype=torch.bool, device=dev)
+    if C * N == 0:
+        return vis[0], vis[1]  # nothing to launch, nothing counted
+    # Scratch keys, unsigned in the kernel; it fills them itself.
+    table = torch.empty((2, C, n_pixels), dtype=torch.int64, device=dev)
+    fn = _visibility_entry()
+    with torch.cuda.device(dev):
+        err = fn(dists.data_ptr(), flat.data_ptr(), occ1.data_ptr(),
+                 occ2.data_ptr(), table.data_ptr(), vis.data_ptr(), C, N,
+                 n_pixels, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"carve_visibility launch failed: CUDA error {err}")
+    ray_cast_visibility_pair.launches += 1
+    return vis[0], vis[1]
+
+
+ray_cast_visibility_pair.launches = 0
+stages.count_launches("carve_visibility", ray_cast_visibility_pair)
 
 
 def compute_voxel_colors(
@@ -288,7 +378,7 @@ def carve_volume(
         K_color:[C, 3, 3] intrinsics of colors and visibility (always the
                 cameras' own).
         extrinsics: [C, 4, 4].
-        visibility_cap: if set (and below N), the visibility pair-sort runs
+        visibility_cap: if set (and below N), the visibility pair runs
                 on the first ``visibility_cap`` occupied voxels of the
                 second threshold's set (which holds the first's). Exact when
                 they fit; occupied voxels past the cap get the
@@ -338,7 +428,8 @@ def carve_volume(
     if visibility_cap is None or visibility_cap >= N:
         dists = torch.linalg.norm(pts[None] - cam_pos[:, None, :], dim=-1)
         _, _, flat = _pixel_indices(pix, imgH, imgW)
-        vis1, vis2 = ray_cast_visibility_pair(dists, flat, occ1, occ2)
+        vis1, vis2 = ray_cast_visibility_pair(dists, flat, occ1, occ2,
+                                              imgH * imgW)
         for occupied, visible in ((occ1, vis1), (occ2, vis2)):
             colors = torch.einsum("cn,cnk->nk", weights_of(visible), sampled)
             out = out + volume(occupied, colors) / 2.0
@@ -358,7 +449,7 @@ def carve_volume(
         dists_c = torch.linalg.norm(pts_c[None] - cam_pos[:, None, :], dim=-1)
         _, _, flat_c = _pixel_indices(pix_c, imgH, imgW)
         vis1_c, vis2_c = ray_cast_visibility_pair(dists_c, flat_c, occ1_c,
-                                                  valid_c)
+                                                  valid_c, imgH * imgW)
         samp_pad = torch.cat([sampled, sampled.new_zeros((C, 1, 3))], dim=1)
         sampled_c = samp_pad.index_select(1, comp)  # [C,M,3]
 

@@ -3,7 +3,7 @@
 
     python -m pose_splatter_torch.scripts.dbg_carve_micro [--device cuda|cpu]
         [--seed N] [--iters N] [--voxels N] [--cameras C] [--height H]
-        [--width W]
+        [--width W] [--shapes]
 
 N = 128·128·64 = 1,048,576 voxels, C = 5 cameras, 576x512 images, the
 script's draws in its order (distances in [0.5, 1.5), random pixels, 10 %
@@ -26,13 +26,25 @@ and 30 % occupancy). Its items, in its order, each line ms a call
    rows [5, N, 128] before the cut);
 7. projection einsum [C,N,3] (item 6 of the script is skipped there);
 8. paired vis (BOTH thresholds): ``carving.py::ray_cast_visibility_pair``,
-   the carve's own;
+   the carve's own: each pixel's least (distance, voxel index) key over
+   each occupied set, by the hand-written kernel ``csrc/
+   carve_visibility.cu`` on the card and by its plain version
+   (``visibility_pair_ref``, ``scatter_reduce("amin")``) on the CPU (the
+   JAX script's item 8 is a sort, a cumsum and a segmented cummax);
 9. sample gather [C,N,4] fused;
 10. current vis x2 thresholds: item 1 twice.
 
 The result also says whether the visibility variants agree where their
 semantics are the same (``agree``): items 1, 2 and 8's first output on
-the 10 % set, item 8's second against item 1 on the 30 % set, exactly.
+the 10 % set, item 8's second against item 1 on the 30 % set, and item 8
+against ``visibility_pair_ref`` on the same device, exactly.
+
+``--shapes`` adds :func:`visibility_shapes`: item 8 at the main path's
+three carve shapes (``VIS_SHAPES``) on a ring of 5 cameras, with the
+benchmark scene's ellipsoid and with random sets, against its plain
+version bit for bit, its ms a call beside the plain version's, its
+bound from the function's own bytes and, apart, the fill of the kernel's
+scratch table.
 """
 
 from __future__ import annotations
@@ -43,12 +55,32 @@ import numpy as np
 import torch
 
 from pose_splatter_torch.ops.carving import (
+    _pixel_indices,
     frontmost_visible,
     ray_cast_visibility_pair,
+    visibility_pair_ref,
 )
 from pose_splatter_torch.scripts import probe_common as pc
+from pose_splatter_torch.utils.device import call_ms, resolve_device
+from pose_splatter_torch.utils.geometry import (
+    camera_positions,
+    create_3d_grid,
+    project_points,
+)
+from pose_splatter_torch.utils.synthetic import ring_cameras
 
 N, C, H, W = 128 * 128 * 64, 5, 512, 576
+
+# The carve's visibility on the main path: (name, grid size, crop, image
+# width, height) of the 2D preset, the 3D preset and the high-res preset,
+# each with 5 observed cameras (ell 0.22).
+CROP = ((0, 96), (16, 96), (25, 89))
+VIS_SHAPES = (("2d_576x512", 128, CROP, 576, 512),
+              ("3d_288x256", 112, CROP, 288, 256),
+              ("highres_1152x1024", 256, ((0, 192), (32, 192), (50, 178)),
+               1152, 1024))
+VIS_AXES = (0.0385, 0.0224, 0.0196)  # the benchmark scene's ellipsoid
+PEAK_BYTES = 3.35e12  # H100 SXM device memory, bytes/s
 
 
 def inputs(dev, N: int = N, C: int = C, H: int = H, W: int = W,
@@ -92,6 +124,100 @@ def projection(pts, P34):
     return torch.einsum("cij,nj->cni", P34, ph)
 
 
+def visibility_inputs(dev, grid_size: int, crop, width: int, height: int,
+                      sets: str = "ellipsoid", cameras: int = 5,
+                      seed: int = 0):
+    """The carve's visibility pair's arguments (dists, flat, occ1, occ2,
+    n_pixels) on ``dev`` for a grid of ``grid_size`` (ell 0.22) cut to
+    ``crop``, seen by ``cameras`` ring cameras at width x height (focal
+    800 px at 576 wide), as ``carve_volume`` computes them. ``sets``
+    "ellipsoid": the benchmark scene's ellipsoid at the crop's centre
+    (occ2) and its inner part (occ1, radius² 0.8), nested as the carve's
+    thresholds are; "random": 10 % and 30 % of the voxels drawn apart
+    from ``seed``, not nested."""
+    dev = torch.device(dev)
+    Ks, Es = ring_cameras(cameras, width, height, 800.0 * width / 576, 0.6)
+    K, E = torch.from_numpy(Ks).to(dev), torch.from_numpy(Es).to(dev)
+    pts = torch.from_numpy(
+        create_3d_grid(0.22, grid_size, crop).reshape(-1, 3)).to(dev)
+    dists = torch.linalg.norm(pts[None] - camera_positions(E)[:, None], dim=-1)
+    flat = _pixel_indices(project_points(pts, K, E, clamp_z=True), height,
+                          width)[2]
+    if sets == "ellipsoid":
+        axes = torch.tensor(VIS_AXES, device=dev)
+        r2 = (((pts - pts.mean(0)) / axes) ** 2).sum(1)
+        occ1, occ2 = r2 <= 0.8, r2 <= 1.0
+    elif sets == "random":
+        u = torch.from_numpy(np.random.default_rng(seed).uniform(
+            size=(2, pts.shape[0]))).to(dev)
+        occ1, occ2 = u[0] < 0.1, u[1] < 0.3
+    else:
+        raise ValueError(f"unknown sets {sets!r}")
+    return dists, flat, occ1, occ2, height * width
+
+
+def visibility_bound(dists, occ1, occ2, n_pixels: int) -> Dict:
+    """The pair's least time at the card's memory bandwidth, from the bytes
+    the function itself needs, each counted once: the flags, the booleans
+    written and the occupied voxels' distances and pixels (``bytes``,
+    ``bound_ms``). Apart from them, the fill of the kernel's own scratch
+    table of 64-bit keys, ``[2, C, n_pixels]`` (``fill_bytes``,
+    ``fill_ms``), a cost of the design and not of the function;
+    ``bound_with_fill_ms`` is the two together."""
+    cams, n = dists.shape
+    occupied = int((occ1 | occ2).sum())
+    nbytes = 2 * n + 2 * cams * n + 12 * cams * occupied
+    fill = 16 * cams * n_pixels
+    return dict(occupied=occupied, bytes=nbytes,
+                bound_ms=1e3 * nbytes / PEAK_BYTES, fill_bytes=fill,
+                fill_ms=1e3 * fill / PEAK_BYTES,
+                bound_with_fill_ms=1e3 * (nbytes + fill) / PEAK_BYTES)
+
+
+def visibility_shapes(device="cuda", iters: int = 10, seed: int = 0,
+                      shapes=VIS_SHAPES, device_timer=None) -> list:
+    """Item 8 at each of ``shapes`` with both kinds of sets
+    (:func:`visibility_inputs`): bit-equal to ``visibility_pair_ref``,
+    ms a call of each (``probe_common``'s timing: CUDA events around
+    back-to-back calls on the card) and the bound of
+    :func:`visibility_bound`; with ``device_timer`` (a function of a call,
+    such as one that replays calls captured in a CUDA graph) also the
+    kernel's ``device_ms``. One row a shape and sets."""
+    dev = resolve_device(device)
+    rows = []
+    for name, grid_size, crop, width, height in shapes:
+        for sets in ("ellipsoid", "random"):
+            x = visibility_inputs(dev, grid_size, crop, width, height, sets,
+                                  seed=seed)
+            got = ray_cast_visibility_pair(*x)
+            ref = visibility_pair_ref(*x)
+            row = dict(shape=name, sets=sets, voxels=x[0].shape[1],
+                       cameras=x[0].shape[0], pixels=x[4],
+                       bit_equal=all(bool(torch.equal(a, b))
+                                     for a, b in zip(got, ref)),
+                       visible=[int(v.sum()) for v in got],
+                       ms=call_ms(lambda: ray_cast_visibility_pair(*x),
+                                     dev, iters),
+                       plain_ms=call_ms(lambda: visibility_pair_ref(*x),
+                                           dev, iters),
+                       **visibility_bound(x[0], x[2], x[3], x[4]))
+            if device_timer is not None:
+                row["device_ms"] = device_timer(
+                    lambda: ray_cast_visibility_pair(*x))
+            print(f"carve visibility {name} {sets}: {row['voxels']} voxels "
+                  f"x {row['cameras']} cameras, {row['occupied']} occupied, "
+                  f"visible {row['visible']}; {row['ms']:.4f} ms a call"
+                  + (f" ({row['device_ms']:.4f} on the device)"
+                     if device_timer is not None else "") + ", "
+                  f"plain {row['plain_ms']:.4f} ms; bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bytes'] / 1e6:.1f} MB), "
+                  f"with the table's fill {row['bound_with_fill_ms']:.4f} ms "
+                  f"(+{row['fill_bytes'] / 1e6:.1f} MB); "
+                  f"bit-equal {row['bit_equal']}", flush=True)
+            rows.append(row)
+    return rows
+
+
 def run(device="cuda", seed: int = 0, iters: int = 10, N: int = N,
         C: int = C, H: int = H, W: int = W) -> Dict:
     probe = pc.Probe(device, iters, width=38, fmt="9.2f")
@@ -117,16 +243,19 @@ def run(device="cuda", seed: int = 0, iters: int = 10, N: int = N,
     probe.time("projection einsum [C,N,3]",
                lambda: projection(x["pts"], x["P34"]))
     probe.time("paired vis (BOTH thresholds)",
-               lambda: ray_cast_visibility_pair(d, idx, occ, occ2))
+               lambda: ray_cast_visibility_pair(d, idx, occ, occ2, hw))
     imgs4 = torch.cat([imgs, imgs1], -1)
     probe.time("sample gather [C,N,4] fused", lambda: sample(imgs4, idx))
     probe.time("current vis x2 thresholds",
                lambda: (vis_sort(occ), vis_sort(occ2)))
-    v1, v2 = ray_cast_visibility_pair(d, idx, occ, occ2)
+    v1, v2 = ray_cast_visibility_pair(d, idx, occ, occ2, hw)
     ref1, ref2 = vis_sort(occ), vis_sort(occ2)
+    plain = visibility_pair_ref(d, idx, occ, occ2, hw)
     agree = dict(shared=bool(torch.equal(vis_shared(d, idx, occ), ref1)),
                  paired_first=bool(torch.equal(v1, ref1)),
-                 paired_second=bool(torch.equal(v2, ref2)))
+                 paired_second=bool(torch.equal(v2, ref2)),
+                 paired_plain=bool(torch.equal(v1, plain[0])
+                                   and torch.equal(v2, plain[1])))
     print(f"visibility variants agree: {agree}", flush=True)
     return probe.result(agree=agree, visible=int(ref1.sum()),
                         visible2=int(ref2.sum()))
@@ -138,9 +267,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--cameras", type=int, default=C)
     ap.add_argument("--height", type=int, default=H)
     ap.add_argument("--width", type=int, default=W)
+    ap.add_argument("--shapes", action="store_true",
+                    help="also item 8 at the main path's carve shapes "
+                         "against its plain version (visibility_shapes)")
     a = ap.parse_args(argv)
-    return run(a.device, a.seed, a.iters, a.voxels, a.cameras, a.height,
-               a.width)
+    out = run(a.device, a.seed, a.iters, a.voxels, a.cameras, a.height,
+              a.width)
+    if a.shapes:
+        out["shapes"] = visibility_shapes(a.device, a.iters, a.seed)
+    return out
 
 
 if __name__ == "__main__":

@@ -216,7 +216,7 @@ def main(argv=None):
                         "backward (torch.utils.checkpoint)")
     parser.add_argument("--carve-cap", type=int, default=None,
                         help="carve_visibility_cap (ops/carving.py): static "
-                        "occupied-set compaction for the visibility sort; "
+                        "occupied-set compaction for the carve's visibility; "
                         "overflow counted")
     parser.add_argument("--per-camera", action="store_true",
                         help="also evaluate ALL C views per frame (observed "

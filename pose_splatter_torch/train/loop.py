@@ -206,8 +206,8 @@ class MultiStep:
     captured once and holds one step's memory; the replays' launch cost is
     microseconds against a step of tens of ms. A capture that fails raises:
     there is no eager fallback. Launch counters count a kernel once at
-    capture, so ``graph_launches`` keeps the compositor launches one replay
-    makes and ``replays`` the replays made.
+    capture, so ``graph_launches`` keeps the compositor and carve
+    visibility launches one replay makes and ``replays`` the replays made.
 
     On the CPU the K steps run as a plain loop.
     """
@@ -241,10 +241,12 @@ class MultiStep:
         return torch.stack([m[k] for k in METRICS])
 
     def _capture(self):
+        from pose_splatter_torch.ops import carving
         from pose_splatter_torch.ops import rasterize_kernels as RK
 
         kernels = dict(composite_fwd=RK.composite_instances,
-                       composite_bwd=RK.composite_instances_bwd)
+                       composite_bwd=RK.composite_instances_bwd,
+                       carve_visibility=carving.ray_cast_visibility_pair)
         before = {k: f.launches for k, f in kernels.items()}
         torch.cuda.synchronize(self.model.device)
         # Gradients None before the capture: the captured backward then

@@ -98,9 +98,115 @@ def test_the_pair_equals_two_sort_calls():
     flat = torch.from_numpy(rng.integers(0, 400, (3, 5000)))
     occ1 = torch.from_numpy(rng.uniform(size=5000) < 0.2)
     occ2 = occ1 | torch.from_numpy(rng.uniform(size=5000) < 0.3)
-    v1, v2 = tc.ray_cast_visibility_pair(d, flat, occ1, occ2)
+    v1, v2 = tc.ray_cast_visibility_pair(d, flat, occ1, occ2, 400)
     assert torch.equal(v1, tc.frontmost_visible(d, flat, occ1, 400))
     assert torch.equal(v2, tc.frontmost_visible(d, flat, occ2, 400))
+
+
+def _pair_case(case):
+    """(dists, flat, occ1, occ2, n_pixels) in numpy for one edge of the
+    carve's visibility pair; 3 cameras, 64 pixels."""
+    rng = np.random.default_rng(7)
+    C, N, P = 3, 600, 64
+    dists = rng.integers(0, 12, (C, N)).astype(np.float32) / 4.0  # ties
+    flat = rng.integers(0, P, (C, N))
+    occ1 = rng.uniform(size=N) < 0.3
+    occ2 = occ1 | (rng.uniform(size=N) < 0.3)
+    if case == "equal_distances":
+        dists[:, :] = 1.25
+        flat[:, :40] = 5  # forty voxels at one distance on one pixel
+    elif case == "distance_zero":
+        dists[:, ::3] = 0.0
+    elif case == "none_occupied":
+        occ1[:], occ2[:] = False, False
+    elif case == "all_occupied":
+        occ1[:], occ2[:] = True, True
+    elif case == "not_nested":
+        occ2 = ~occ1 & (rng.uniform(size=N) < 0.5)
+        occ2[::7] = True
+    elif case == "one_pixel":
+        flat[:, :] = 17
+    elif case == "compacted_slots":
+        # As the capped carve passes them: the slots of compact_occupied
+        # with a cap above the count, each slot's voxel's values; the empty
+        # slots read a zero pad row and are in neither set.
+        comp, _ = tc.compact_occupied(torch.from_numpy(occ2), 400)
+        comp = comp.numpy()
+        valid = comp < N
+        assert 0 < valid.sum() < len(valid)
+        pad = np.concatenate([dists, np.zeros((C, 1), np.float32)], 1)
+        dists = np.ascontiguousarray(pad[:, comp])
+        flat = np.concatenate([flat, np.zeros((C, 1), np.int64)], 1)[:, comp]
+        occ1 = np.concatenate([occ1, [False]])[comp] & valid
+        occ2 = valid
+    return dists, np.ascontiguousarray(flat), occ1, occ2, P
+
+
+@pytest.mark.parametrize("case", ["equal_distances", "distance_zero",
+                                  "none_occupied", "all_occupied",
+                                  "not_nested", "one_pixel",
+                                  "compacted_slots"])
+def test_min_key_pair_equals_jax_on_the_edges(case):
+    """The min-key visibility pair (``visibility_pair_ref``, which the CPU
+    runs) against the JAX sort + cumsum + cummax, exactly, on the cases
+    random draws miss; also through ``ray_cast_visibility_pair``."""
+    dists, flat, occ1, occ2, P = _pair_case(case)
+    r1, r2 = jc.ray_cast_visibility_pair(*(jnp.asarray(a) for a in (
+        dists, flat, occ1, occ2)))
+    t = [torch.from_numpy(a) for a in (dists, flat, occ1, occ2)]
+    launched = tc.ray_cast_visibility_pair.launches
+    for got in (tc.visibility_pair_ref(*t, P),
+                tc.ray_cast_visibility_pair(*t, P)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(r1))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(r2))
+    assert tc.ray_cast_visibility_pair.launches == launched  # no kernel here
+    v1, v2 = got[0].numpy(), got[1].numpy()
+    for v, occ in ((v1, occ1), (v2, occ2)):
+        assert not v[:, ~occ].any()
+        for c in range(dists.shape[0]):  # one winner a pixel with a voxel
+            assert np.array_equal(np.sort(flat[c][v[c]]),
+                                  np.unique(flat[c][occ]))
+    if case == "equal_distances":
+        first = np.flatnonzero(occ1[:40])[0]
+        assert v1[:, :40].sum() == dists.shape[0] and v1[:, first].all()
+    if case == "none_occupied":
+        assert not v1.any() and not v2.any()
+    if case == "one_pixel":
+        assert (v1.sum(1) == 1).all() and (v2.sum(1) == 1).all()
+
+
+def _bad_pair(case):
+    """The pair's arguments with one fault; nothing large is allocated
+    (2^32 voxels only in a [0, 2^32] shape)."""
+    d, f = torch.ones((2, 8)), torch.zeros((2, 8), dtype=torch.long)
+    o = torch.ones(8, dtype=torch.bool)
+    return {"dists_dtype": (d.double(), f, o, o),
+            "flat_dtype": (d, f.int(), o, o),
+            "occ_dtype": (d, f, o, o.to(torch.uint8)),
+            "occ_shape": (d, f, o[:7], o),
+            "flat_shape": (d, f[:1], o, o),
+            "dists_1d": (d[0], f, o, o),
+            "not_contiguous": (d, torch.zeros((8, 2), dtype=torch.long).T,
+                               o, o),
+            "device": (d, f, o, o.to("meta")),
+            "too_many_voxels": (torch.empty((0, 1 << 32)), f, o, o)}[case]
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("dists_dtype", TypeError, "dists has dtype"),
+    ("flat_dtype", TypeError, "flat has dtype"),
+    ("occ_dtype", TypeError, "occ2 has dtype"),
+    ("occ_shape", ValueError, "occ1 has shape"),
+    ("flat_shape", ValueError, "flat has shape"),
+    ("dists_1d", ValueError, "expected \\[C, N\\]"),
+    ("not_contiguous", ValueError, "flat must be contiguous"),
+    ("device", ValueError, "occ2 is on meta"),
+    ("too_many_voxels", ValueError, "fewer than 2\\^32"),
+])
+def test_pair_checks_its_inputs(case, error, match):
+    """The pair's checks, the same on every device, read shapes only."""
+    with pytest.raises(error, match=match):
+        tc.ray_cast_visibility_pair(*_bad_pair(case), 16)
 
 
 @pytest.mark.parametrize("nonvisible_weight", [0.25, 0.5])

@@ -15,7 +15,10 @@ capturable Adam against the eager update. The bench counterpart and
 ``graft_entry.entry`` turning TF32 off, the bench's fwd+bwd on the card
 against the CPU's and its CUDA-graph capture in kernel and tiled mode,
 and the O(P) ``composite_pixels`` against autograd through its scan.
-The carve's visibility cap on the card against the CPU, a remat train
+The carve's visibility kernel against its plain version at the main
+path's three carve shapes, under CUDA-graph capture, inside
+``carve_volume`` and its wrapper's checks. The carve's visibility cap on
+the card against the CPU, a remat train
 step against one without remat, and a captured step with the cap and
 remat against its eager twin. The final U-Net's backward at the presets'
 crop with cuDNN's autotuning: off the direct weight-gradient kernel and
@@ -668,7 +671,8 @@ def test_captured_step_matches_the_eager_step(dev, deterministic_cudnn, mode):
         sb, m = step(sb, batch)
         eager_losses.append(float(m["total"]))
     assert ms.replays == 5 and sa.step == sb.step == 8
-    assert ms.graph_launches == {"composite_fwd": 1, "composite_bwd": 1}
+    assert ms.graph_launches == {"composite_fwd": 1, "composite_bwd": 1,
+                                 "carve_visibility": 1}
     assert graph_losses == eager_losses, (graph_losses, eager_losses)
     for (k, x), y in zip(a.net.state_dict().items(),
                          b.net.state_dict().values()):
@@ -982,7 +986,8 @@ def test_captured_cap_remat_step_matches_the_eager_step(dev, deterministic_cudnn
         return_overflow=True)
     assert int(overflow) > 0  # the captured carve overflows its cap
     assert ms.replays == 5 and ms.graph_launches == {"composite_fwd": 1,
-                                                     "composite_bwd": 1}
+                                                     "composite_bwd": 1,
+                                                     "carve_visibility": 1}
     assert graph_losses == eager_losses, (graph_losses, eager_losses)
     for (k, x), y in zip(a.net.state_dict().items(),
                          b.net.state_dict().values()):
@@ -1172,3 +1177,132 @@ def test_preprocessing_carves_on_the_card_match_the_cpu(dev, per_frame_K):
     assert torch.equal(o0, o1) and int(o0.max()) == B
     assert torch.allclose(m1, m0, rtol=1e-5, atol=1e-5 * float(np.abs(grid).max()))
     assert torch.allclose(c1, c0, rtol=1e-5, atol=1e-5 * float(c0.abs().max()))
+
+
+# ---- the carve's visibility kernel (csrc/carve_visibility.cu) ----------
+
+def _vis_inputs(dev, shape, sets):
+    from pose_splatter_torch.scripts import dbg_carve_micro as cm
+
+    _, grid_size, crop, width, height = {s[0]: s for s in cm.VIS_SHAPES}[shape]
+    return cm.visibility_inputs(dev, grid_size, crop, width, height, sets)
+
+
+def _pair_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("sets", ["ellipsoid", "random"])
+@pytest.mark.parametrize("shape", ["2d_576x512", "3d_288x256",
+                                   "highres_1152x1024"])
+def test_carve_visibility_kernel_equals_plain(dev, shape, sets):
+    """The kernel at the main path's three carve shapes (5 ring cameras;
+    the benchmark scene's ellipsoid, and random sets that are not nested)
+    against its plain version on the card, bit for bit, one launch a
+    call, the same booleans on a rerun; at the two smaller shapes also
+    against the plain version on the CPU."""
+    from pose_splatter_torch.ops import carving as tc
+
+    x = _vis_inputs(dev, shape, sets)
+    before = tc.ray_cast_visibility_pair.launches
+    got = tc.ray_cast_visibility_pair(*x)
+    torch.cuda.synchronize()
+    assert tc.ray_cast_visibility_pair.launches == before + 1
+    assert got[0].any() and got[1].any()
+    assert _pair_equal(got, tc.visibility_pair_ref(*x))
+    assert _pair_equal(got, tc.ray_cast_visibility_pair(*x))
+    if shape != "highres_1152x1024":
+        cpu = tc.visibility_pair_ref(*(a.cpu() for a in x[:4]), x[4])
+        assert _pair_equal([v.cpu() for v in got], cpu)
+
+
+def test_carve_visibility_kernel_under_graph_capture(dev):
+    """One call captured in a CUDA graph (counted once, at the capture):
+    replays on new inputs copied into the captured ones give the eager
+    call's booleans on those inputs."""
+    from pose_splatter_torch.ops import carving as tc
+
+    x = _vis_inputs(dev, "2d_576x512", "ellipsoid")
+    y = _vis_inputs(dev, "2d_576x512", "random")
+    eager_x, eager_y = tc.ray_cast_visibility_pair(*x), tc.ray_cast_visibility_pair(*y)
+    static = [a.clone() for a in y[:4]]
+    torch.cuda.synchronize()
+    before = tc.ray_cast_visibility_pair.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tc.ray_cast_visibility_pair(*static, x[4])
+    assert tc.ray_cast_visibility_pair.launches == before + 1
+    for inputs, want in ((x, eager_x), (y, eager_y)):
+        for s, a in zip(static, inputs[:4]):
+            s.copy_(a)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _pair_equal(out, want)
+    assert tc.ray_cast_visibility_pair.launches == before + 1
+
+
+@pytest.mark.parametrize("cap", [None, "overflows"])
+def test_carve_volume_through_the_kernel(dev, monkeypatch, cap):
+    """``carve_volume`` on the card launches the kernel once a carve (the
+    CPU none), its visibility equals the plain version's on the carve's
+    own arguments, and its volume equals, bit for bit, the card's volume
+    with the plain version in the kernel's place; against the CPU's volume
+    the occupancy is exact and the colours within 1e-6 (the colour einsum
+    and the distances round in another order on each device)."""
+    from pose_splatter_torch.ops import carving as tc
+
+    calls = []
+    wrapper = tc.ray_cast_visibility_pair
+
+    def recorded(*a):
+        out = wrapper(*a)
+        calls.append((a, out))
+        return out
+
+    # The wrapper counts its launches on the module's name for it.
+    recorded.launches = 0
+    monkeypatch.setattr(tc, "ray_cast_visibility_pair", recorded)
+    args = _carve_scene(False)
+    vols, counted = [], []
+    for d in (torch.device("cpu"), dev):
+        t = [None if a is None else torch.as_tensor(
+            np.asarray(a, np.float32), device=d) for a in args]
+        M = None if cap is None else 200
+        before = recorded.launches
+        vols.append(tc.carve_volume(*t, visibility_cap=M).cpu())
+        counted.append(recorded.launches - before)
+    assert counted == [0, 1]
+    (a, out) = calls[-1]
+    assert out[0].is_cuda and _pair_equal(out, tc.visibility_pair_ref(*a))
+    monkeypatch.setattr(tc, "ray_cast_visibility_pair",
+                        lambda *a: tc.visibility_pair_ref(*a[:4], a[4]))
+    plain = tc.carve_volume(*t, visibility_cap=M).cpu()
+    assert torch.equal(vols[1], plain)
+    assert torch.equal(vols[0][0], vols[1][0])
+    assert float((vols[0] - vols[1]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["dists_dtype", "flat_dtype", "occ_shape",
+                                  "not_contiguous", "too_many_voxels"])
+def test_carve_visibility_wrapper_rejects_what_the_kernel_does_not_take(
+        dev, case):
+    """The wrapper's checks on CUDA tensors, and a CPU tensor beside a CUDA
+    one; nothing is launched."""
+    from pose_splatter_torch.ops import carving as tc
+
+    d = torch.ones((2, 8), device=dev)
+    f = torch.zeros((2, 8), dtype=torch.long, device=dev)
+    o = torch.ones(8, dtype=torch.bool, device=dev)
+    bad = {"dists_dtype": (d.double(), f, o, o),
+           "flat_dtype": (d, f.int(), o, o),
+           "occ_shape": (d, f, o[:7], o),
+           "not_contiguous": (d, torch.zeros((8, 2), dtype=torch.long,
+                                             device=dev).T, o, o),
+           "too_many_voxels": (torch.empty((0, 1 << 32), device=dev), f, o,
+                               o)}[case]
+    before = tc.ray_cast_visibility_pair.launches
+    with pytest.raises((TypeError, ValueError)):
+        tc.ray_cast_visibility_pair(*bad, 16)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tc.ray_cast_visibility_pair(d, f.cpu(), o, o, 16)
+    assert tc.ray_cast_visibility_pair.launches == before

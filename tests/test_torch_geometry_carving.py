@@ -115,7 +115,7 @@ def test_visibility_pair_winners_exact():
         jnp.asarray(dists), jnp.asarray(flat), jnp.asarray(occ1), jnp.asarray(occ2))
     b1, b2 = tcarv.ray_cast_visibility_pair(
         torch.from_numpy(dists), torch.from_numpy(flat).long(),
-        torch.from_numpy(occ1), torch.from_numpy(occ2))
+        torch.from_numpy(occ1), torch.from_numpy(occ2), 200)
     np.testing.assert_array_equal(np.asarray(a1), b1.numpy())
     np.testing.assert_array_equal(np.asarray(a2), b2.numpy())
     # At most one visible voxel per (camera, pixel).

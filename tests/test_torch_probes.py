@@ -274,7 +274,7 @@ def test_carve_micro_variants_match_the_scripts_lines():
         np.testing.assert_array_equal(got.numpy(), ref)
         assert ref.sum() > 0
     r1, r2 = jc.ray_cast_visibility_pair(jd, ji, jo, jnp.asarray(occ2.numpy()))
-    v1, v2 = tc.ray_cast_visibility_pair(d, idx, occ, occ2)
+    v1, v2 = tc.ray_cast_visibility_pair(d, idx, occ, occ2, hw)
     np.testing.assert_array_equal(v1.numpy(), np.asarray(r1))
     np.testing.assert_array_equal(v2.numpy(), np.asarray(r2))
     # Items 4, 5, 7 (take_along_axis, the padded row gather, the einsum).
@@ -290,6 +290,38 @@ def test_carve_micro_variants_match_the_scripts_lines():
         carve_micro.projection(pts, P34).numpy(),
         np.asarray(jnp.einsum("cij,nj->cni", jnp.asarray(P34.numpy()), ph)),
         rtol=1e-5, atol=1e-5)
+
+
+TINY_SHAPE = ("tiny", 32, ((0, 16), (4, 20), (6, 22)), 96, 64)
+
+
+def test_carve_micro_shapes_on_the_cpu():
+    """``--shapes``' rows at a small shape: both kinds of sets, the pair
+    equal to its plain version and to the JAX ``ray_cast_visibility_pair``
+    on the same arguments, the ellipsoid's sets nested and the random ones
+    not, the bound counting the function's own bytes as the kernel's
+    source counts them and, apart, the fill of its scratch table."""
+    rows = carve_micro.visibility_shapes("cpu", 1, 0, shapes=[TINY_SHAPE],
+                                         device_timer=lambda fn: 0.25)
+    assert [r["sets"] for r in rows] == ["ellipsoid", "random"]
+    for r in rows:
+        assert r["bit_equal"] and r["device_ms"] == 0.25
+        assert r["occupied"] > 0 and min(r["visible"]) > 0
+        N, C, P = r["voxels"], r["cameras"], r["pixels"]
+        assert (N, C, P) == (16 ** 3, 5, 96 * 64)
+        assert r["bytes"] == 2 * N + 2 * C * N + 12 * C * r["occupied"]
+        assert r["fill_bytes"] == 16 * C * P
+        assert r["bound_with_fill_ms"] == pytest.approx(
+            r["bound_ms"] + r["fill_ms"])
+    for sets, nested in (("ellipsoid", True), ("random", False)):
+        d, f, o1, o2, P = carve_micro.visibility_inputs(
+            "cpu", *TINY_SHAPE[1:], sets=sets)
+        assert bool((o1 & ~o2).any()) is not nested
+        r1, r2 = jc.ray_cast_visibility_pair(*(jnp.asarray(a.numpy()) for a in (
+            d, f, o1, o2)))
+        v1, v2 = tc.ray_cast_visibility_pair(d, f, o1, o2, P)
+        np.testing.assert_array_equal(v1.numpy(), np.asarray(r1))
+        np.testing.assert_array_equal(v2.numpy(), np.asarray(r2))
 
 
 # ---- dbg_vmap_kernel --------------------------------------------------

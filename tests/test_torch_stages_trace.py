@@ -3,7 +3,7 @@ train step, an eval forward and a K-step call, on the CPU at a small
 size: the spans' nesting and unit ids, an off path with no event, range
 or clock read, the ``pose_splatter/*`` ranges in a ``torch.profiler``
 trace, ``record()`` unchanged beside them, the host reads counted, the
-compositors' launches a unit and the ring's bound.
+kernels' launches a unit and the ring's bound.
 
 The last test runs on the card (marker ``cuda``): ``host_syncs`` against
 the synchronisations ``torch.cuda.set_sync_debug_mode("warn")`` reports
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from pose_splatter_torch.models.pose_splatter import PoseSplatter
+from pose_splatter_torch.ops import carving
 from pose_splatter_torch.ops import rasterize_kernels as RK
 from pose_splatter_torch.train.loop import (
     create_train_state,
@@ -227,9 +228,10 @@ def test_host_syncs_once_a_step_and_once_a_frame(setup, monkeypatch):
 
 
 def test_launches_and_binning_a_unit(setup, monkeypatch):
-    """The CPU runs the compositors' plain versions, which count nothing;
+    """The CPU runs the kernels' plain versions, which count nothing;
     counted here as the card's wrappers count their launches."""
     fwd, bwd = RK.composite_instances_ref, RK.composite_instances_bwd_ref
+    vis = carving.visibility_pair_ref
 
     def fwd_counted(*a, **k):
         RK.composite_instances.launches += 1
@@ -239,18 +241,26 @@ def test_launches_and_binning_a_unit(setup, monkeypatch):
         RK.composite_instances_bwd.launches += 1
         return bwd(*a, **k)
 
+    def vis_counted(*a, **k):
+        carving.ray_cast_visibility_pair.launches += 1
+        return vis(*a, **k)
+
     monkeypatch.setattr(RK, "composite_instances_ref", fwd_counted)
     monkeypatch.setattr(RK, "composite_instances_bwd_ref", bwd_counted)
+    monkeypatch.setattr(carving, "visibility_pair_ref", vis_counted)
     # The counters are the process's: put them back for the tests that
     # hold them at 0 on the CPU.
-    for wrapper in (RK.composite_instances, RK.composite_instances_bwd):
+    for wrapper in (RK.composite_instances, RK.composite_instances_bwd,
+                    carving.ray_cast_visibility_pair):
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
     with stages.trace("cpu"):
         setup.train(1)
         setup.frame(1)
     step, frame = stages.last_trace().units
-    assert step["launches"] == dict(composite_fwd=1, composite_bwd=1)
-    assert frame["launches"] == dict(composite_fwd=1, composite_bwd=0)
+    assert step["launches"] == dict(composite_fwd=1, composite_bwd=1,
+                                    carve_visibility=1)
+    assert frame["launches"] == dict(composite_fwd=1, composite_bwd=0,
+                                     carve_visibility=1)
     for u in (step, frame):
         assert u["binning_calls"] == 1
         assert u["binned_rows"] > 0 and u["dropped_rows"] >= 0
@@ -376,8 +386,10 @@ def test_host_syncs_match_torch_on_the_card(preset):
             assert abs(total - timed) <= 0.1 * timed, (fn.__name__, total, timed)
             assert unit["host_syncs"] == reported[fn]
     step_u, frame_u = stages.last_trace().units
-    assert step_u["launches"] == dict(composite_fwd=1, composite_bwd=1)
-    assert frame_u["launches"] == dict(composite_fwd=1, composite_bwd=0)
+    assert step_u["launches"] == dict(composite_fwd=1, composite_bwd=1,
+                                      carve_visibility=1)
+    assert frame_u["launches"] == dict(composite_fwd=1, composite_bwd=0,
+                                       carve_visibility=1)
     if preset == "3d":
         return
     # A K-step call: its eager warm-up steps have spans; the captured step
