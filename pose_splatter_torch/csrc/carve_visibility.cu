@@ -36,8 +36,8 @@
 // bytes): at N = 3,932,160, C = 5 that is 7.9 + 39.3 MB and 0.06 MB per
 // thousand occupied voxels, about 54 MB with the high-res scene's 110k,
 // 0.016 ms at 3.35 TB/s. The table's fill (16 C P bytes, 94.4 MB at
-// P = 1152 * 1024, 0.028 ms) is this design's own cost on top; chip_smoke.py
-// prints both bounds at each shape it times. Were every voxel occupied, the
+// P = 1152 * 1024, 0.028 ms) is this design's own cost on top; dbg_carve_micro
+// --shapes prints both bounds at each shape it times. Were every voxel occupied, the
 // distances and pixels of all C N pairs would add 236 MB. Design against
 // it: the flags are read first and an unoccupied
 // voxel loads nothing else, every load and store is coalesced along n (a

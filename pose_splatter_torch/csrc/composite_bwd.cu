@@ -66,7 +66,7 @@
 // What bounds it. Each walked row is read once (64 bytes) and written once,
 // each walked chunk's tbounds row once (4 P bytes), and the pixel gradients
 // once (16 P bytes a tile); against that, at least 49 float32 operations a
-// (instance, pixel) pair (derived in chip_smoke.py). With P = 1024 pixels a
+// (instance, pixel) pair (derived in benchmark/counts.py). With P = 1024 pixels a
 // row the kernel is bound by float32 throughput, not by memory; the tot
 // and sfx scratch rows (4 P bytes a chunk each) are written once and read
 // once or twice. Phases 1 and 3 recompute a and T (about 13 operations a

@@ -18,7 +18,7 @@
 // the probe's loop the 1.18 MB table and its indices stay in the 50 MB L2,
 // so device memory is not what a launch waits on. What it waits on is the
 // launch floor (0.8 us: a one-element zero_() replayed in a CUDA graph,
-// which chip_smoke.py measures beside the kernel), two rounds of dependent
+// PERF.md's kernel table gives beside the kernel), two rounds of dependent
 // loads (the indices, then the table) and, on axis 0, the L2 sectors: an
 // element gathered from a random row is a 32-byte sector of its own, 9.4
 // MB of sectors an offset at [2304, 128] for 1.18 MB of table.

@@ -11,9 +11,12 @@ reads source row s_i, axis 0) and random lanes (axis 1). Times come from
 CUDA events over many launches of the kernel after a warm-up; each line
 names the card. They are host-launched rates: at this size a launch's
 device work takes less time than the host's Python takes to issue it, so
-the lines time the launch path (``chip_smoke.py --gather-only`` prints
-the device time beside them). Runs on the GPU and raises where there is none. Indices
-come from ``np.random.default_rng(seed)``.
+the lines time the launch path and move with the host from run to run.
+The device's own time a launch (launches captured in one CUDA graph and
+replayed between CUDA events) is shorter, and the launch floor (a
+one-element ``zero_()`` replayed so) bounds it from below; compare a
+host-launched time only with another. Runs on the GPU and raises where
+there is none. Indices come from ``np.random.default_rng(seed)``.
 
 The rates are per gather the kernel does, not per term of the sum. Whatever
 ``reps`` is, an element reads only two distinct table entries (offsets 0

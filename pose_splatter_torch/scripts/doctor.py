@@ -4,19 +4,25 @@ Usage: python -m pose_splatter_torch.scripts.doctor [--device cuda|cpu]
 
 Checks torch and the package's version; the card (name, compute capability,
 power limit), ``nvcc`` and each ``csrc/*.cu`` built through
-``ops/_build.build``; the native frame decode (optional, as in the JAX
+``ops/_build.build``, every source and the native frame decode compiled at
+once, each kernel failing where its ``ptxas`` log reports a register
+spill or is missing; the native frame decode (optional, as in the JAX
 script); the optional packages of the JAX script's list plus ``h5py`` and
-``PIL``; and a tiny ``rasterize`` forward and backward, through the
-hand-written kernels on the card (their launches counted) or through their
-plain versions with ``--device cpu``. On the CPU the card, ``nvcc`` and the
-kernels are reported but not required. Exits 1 when a required check
-fails.
+``PIL``; and a tiny
+``rasterize`` forward and backward, through the hand-written kernels on the
+card (their launches counted) or through their plain versions with
+``--device cpu``. On the CPU the card, ``nvcc`` and the kernels are
+reported but not required. Exits 1 when a required check fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import List
 
 from pose_splatter_torch.scripts.common import add_device
 
@@ -67,18 +73,47 @@ def nvcc():
     return _build.nvcc_path()
 
 
-def kernel(name):
-    from pose_splatter_torch.ops import _build
+def spills(log: str) -> List[str]:
+    """The lines of a ``ptxas -v`` log that report spill stores or loads
+    of more than 0 bytes."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and any(int(g) for g in m.groups()):
+            out.append(line.strip())
+    return out
 
-    return lambda: str(_build.build(name))
+
+def kernel(name, built):
+    """The library that ``built`` (a future of ``_build.build(name)``)
+    gives, failing where its build log reports a spill or is missing."""
+    def run():
+        lib = built.result()
+        log = Path(str(lib) + ".log")
+        if not log.exists():
+            raise RuntimeError(f"{name}.cu's build log {log.name} is "
+                               "missing, so its spills are unchecked")
+        bad = spills(log.read_text())
+        if bad:
+            raise RuntimeError(f"{name}.cu spills registers: {bad[0]}")
+        return f"{lib}, no spills"
+
+    return run
 
 
-def native():
-    from pose_splatter_torch.data import native as n
+def native(built):
+    """The native decode's library, once ``built`` (a future of its build)
+    is done, loaded."""
+    def run():
+        from pose_splatter_torch.data import native as n
 
-    if not n.available():
-        raise RuntimeError("libfastio did not build; the NumPy decode runs")
-    return str(n.library_path())
+        built.result()
+        if not n.available():
+            raise RuntimeError("libfastio did not build; the NumPy decode runs")
+        return str(n.library_path())
+
+    return run
 
 
 def smoke(device):
@@ -126,13 +161,19 @@ def main(argv=None):
     tag = "" if on_card else " (optional with --device cpu)"
     needed = check("card" + tag, card)
     needed &= check("nvcc" + tag, nvcc)
-    from pose_splatter_torch.ops._build import CSRC
+    from pose_splatter_torch.data import native as n
+    from pose_splatter_torch.ops import _build
 
-    for src in sorted(CSRC.glob("*.cu")):
-        needed &= check(f"kernel {src.name}{tag}", kernel(src.stem))
+    names = [src.stem for src in sorted(_build.CSRC.glob("*.cu"))]
+    # One nvcc a source and g++ for the native decode, all at once.
+    with ThreadPoolExecutor(len(names) + 1) as ex:
+        fastio = ex.submit(n.build)
+        built = [ex.submit(_build.build, name) for name in names]
+        for name, future in zip(names, built):
+            needed &= check(f"kernel {name}.cu{tag}", kernel(name, future))
+        check("native fastio (optional)", native(fastio))
     if on_card:
         ok &= needed
-    check("native fastio (optional)", native)
 
     for mod, why in OPTIONAL:
         def probe(mod=mod, why=why):

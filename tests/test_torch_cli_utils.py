@@ -85,6 +85,39 @@ def test_doctor_on_the_cpu_exits_0(capsys):
         assert f"kernel {src.name}" in out
 
 
+@pytest.mark.parametrize("stores,loads", [(0, 0), (8, 0), (0, 4)])
+def test_doctor_fails_a_kernel_that_spills(tmp_path, stores, loads):
+    """``spills`` reads a ``ptxas -v`` log's spill line, and the kernel
+    check passes the library whose log reports none and fails one whose
+    log reports a spill store or load."""
+    from concurrent.futures import Future
+
+    line = (f"    0 bytes stack frame, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads")
+    log = "ptxas info    : Function properties for fwd_sum\n" + line + "\n"
+    assert doctor.spills(log) == ([] if stores == loads == 0 else [line.strip()])
+    lib = tmp_path / "libfwd.so"
+    lib.write_bytes(b"")
+    (tmp_path / "libfwd.so.log").write_text(log)
+    built = Future()
+    built.set_result(lib)
+    assert doctor.check("kernel fwd.cu", doctor.kernel("fwd", built)) \
+        == (stores == loads == 0)
+
+
+def test_doctor_fails_a_kernel_without_its_build_log(tmp_path, capsys):
+    """A library whose ``ptxas`` log is missing fails the kernel check
+    instead of passing it unread."""
+    from concurrent.futures import Future
+
+    lib = tmp_path / "libfwd.so"
+    lib.write_bytes(b"")
+    built = Future()
+    built.set_result(lib)
+    assert not doctor.check("kernel fwd.cu", doctor.kernel("fwd", built))
+    assert "libfwd.so.log is missing" in capsys.readouterr().out
+
+
 def test_dataset_utils_match_the_jax_script(project, tmp_path, monkeypatch):
     jdu = _load("dataset_utils")
     with open(project) as f:

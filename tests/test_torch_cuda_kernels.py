@@ -53,6 +53,14 @@ pytestmark = pytest.mark.cuda
 TOL = 1e-5
 
 
+def bwd_tol(tile, jstop, G):
+    """The backward's bound relative to each gradient column's largest
+    entry: float32 roundings of sums over a tile's P pixels of suffixes
+    over up to all its walked rows, a random walk, 4·eps·sqrt(P·rows)."""
+    return 4 * 2.0 ** -24 * (tile[0] * tile[1]
+                             * max(int(jstop.max()) * G, 1)) ** 0.5
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -99,8 +107,9 @@ def _binned(dev, mode, tile, chunk, n=1500, views=2, height=96, width=200,
 
 
 @pytest.mark.parametrize("mode", ["ellipse", "conic"])
-@pytest.mark.parametrize("tile,chunk", [((8, 128), 64), ((16, 16), 64),
-                                        ((4, 8), 16), ((32, 32), 128)])
+@pytest.mark.parametrize("tile,chunk", [((8, 128), 64), ((8, 64), 64),
+                                        ((16, 16), 64), ((4, 8), 16),
+                                        ((32, 32), 128)])
 def test_kernel_matches_plain(dev, mode, tile, chunk):
     args = _binned(dev, mode, tile, chunk)
     counts = args[2]
@@ -171,8 +180,9 @@ def _backward_inputs(args, seed=1):
 
 
 @pytest.mark.parametrize("mode", ["ellipse", "conic"])
-@pytest.mark.parametrize("tile,chunk", [((8, 128), 64), ((16, 16), 64),
-                                        ((4, 8), 16), ((32, 32), 128)])
+@pytest.mark.parametrize("tile,chunk", [((8, 128), 64), ((8, 64), 64),
+                                        ((16, 16), 64), ((4, 8), 16),
+                                        ((32, 32), 128)])
 def test_backward_kernel_matches_plain(dev, mode, tile, chunk):
     args = _binned(dev, mode, tile, chunk)
     plain = tk.composite_instances_ref(*args, save_tbounds=True)
@@ -304,9 +314,7 @@ def test_kernels_on_a_hot_tile_match_plain_and_rerun_bit_equal(dev, mode):
              torch.randn((nt, P), generator=gen).to(dev)) + args[4:]
     d = tk.composite_instances_bwd(*bargs)
     d_ref = tk.composite_instances_bwd_ref(*bargs)
-    # chip_smoke.py::bwd_error's tolerance: float32 roundings of sums over
-    # P pixels of suffixes over up to all the tile's walked rows.
-    tol = 4 * 2.0 ** -24 * (P * int(jstop.max()) * G) ** 0.5
+    tol = bwd_tol(args[4], jstop, G)
     scale = d_ref.abs().amax(dim=0).clamp_min(1e-30)
     assert float(((d - d_ref).abs().amax(dim=0) / scale).max()) <= tol
     assert torch.isfinite(d).all() and float(d.abs().max()) > 0
@@ -478,7 +486,9 @@ def test_dyngather_empty_table_launches_nothing(dev, shape, axis):
 
 def test_dyngather_probe_counts_every_launch(dev):
     """The probe's timed launches go through the counted ``launch``: its
-    count is one checked call, the warm-up and the timed loop."""
+    count is one checked call, the warm-up and the timed loop. The probe's
+    entry point: its check against numpy passes on both axes (one gather
+    each), and its three lines count alike."""
     from pose_splatter_torch.scripts import dbg_dyngather_micro as probe
 
     before = tdg.gather_sum.launches
@@ -486,6 +496,12 @@ def test_dyngather_probe_counts_every_launch(dev):
         0, probe.S - 1, (probe.S, probe.L)), np.random.default_rng(1), "card")
     assert tdg.gather_sum.launches - before == 1 + probe.WARMUP + probe.ITERS
     assert line["ms"] > 0
+    before = (tdg.gather_sum.launches, tdg.gather.launches)
+    out = probe.run(seed=0)
+    assert out["correct"] == {0: True, 1: True}
+    assert (tdg.gather_sum.launches - before[0],
+            tdg.gather.launches - before[1]) == (
+        3 * (1 + probe.WARMUP + probe.ITERS), 2)
 
 
 def _gather_inputs(dev, shape, axis, reps, seed, tab_offset=0, idx_offset=0):
@@ -647,7 +663,13 @@ def test_captured_step_matches_the_eager_step(dev, deterministic_cudnn, mode):
     weights, both with capturable Adam: the same kernels on the same
     inputs, so with deterministic convolutions the losses, parameters and
     statistics are equal bit for bit. The compositors launch once a
-    replay, counted at the capture."""
+    replay, counted at the capture: the second call, all replays, goes
+    through no wrapper, the profiler sees each compositor's last kernel
+    at least once a replay, and the call leaves no more than its metrics
+    allocated outside the graph's pool."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from pose_splatter_torch.train.loop import (
         create_train_state,
         make_train_multi_step,
@@ -661,9 +683,23 @@ def test_captured_step_matches_the_eager_step(dev, deterministic_cudnn, mode):
                                steps_per_call=4)
     step = make_train_step(b, sb.optimizer, 0.5, 0.1)
     graph_losses, eager_losses = [], []
-    for call in range(2):
-        sa, _ = ms(sa, *(x[4 * call:4 * call + 4] for x in idx))
-        graph_losses += ms.step_metrics["total"].tolist()
+    sa, _ = ms(sa, *(x[:4] for x in idx))
+    graph_losses += ms.step_metrics["total"].tolist()
+    torch.cuda.synchronize()
+    wrappers = (tk.composite_instances.launches,
+                tk.composite_instances_bwd.launches)
+    allocated = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sa, _ = ms(sa, *(x[4:] for x in idx))
+        torch.cuda.synchronize()
+    graph_losses += ms.step_metrics["total"].tolist()
+    assert (tk.composite_instances.launches,
+            tk.composite_instances_bwd.launches) == wrappers
+    assert torch.cuda.memory_allocated() - allocated <= 4096
+    names = [ev.name for ev in prof.events()
+             if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    assert sum("fwd_sum" in n for n in names) >= 4
+    assert sum("bwd_grad" in n for n in names) >= 4
     for k in range(8):
         f = idx[0][k]
         batch = {n: v[f:f + 1] for n, v in stack.items()}
@@ -891,9 +927,10 @@ def test_capped_carve_on_the_card_matches_the_cpu(dev, cap, adaptive):
     """``carve_volume`` with a cap that fits, one that overflows and none,
     and with an adaptive ``K_mask``, on the card against the CPU: the
     occupancy and the overflow exact, the colours within 1e-6 (the colour
-    einsum reduces in another order on each device). Precondition, as in
-    the CPU parity test: both devices round every voxel's projection to
-    the same pixel."""
+    einsum reduces in another order on each device); the occupancy that of
+    the uncapped carve whatever the cap. Precondition, as in the CPU parity
+    test: both devices round every voxel's projection to the same
+    pixel."""
     from pose_splatter_torch.ops import carving as tc
     from pose_splatter_torch.utils import geometry as tg
 
@@ -917,7 +954,7 @@ def test_capped_carve_on_the_card_matches_the_cpu(dev, cap, adaptive):
     (f0, v0, o0, e0), (f1, v1, o1, e1) = out
     assert torch.equal(f0, f1)
     assert o0 == o1 and (o1 > 0) == (cap == "overflows")
-    assert torch.equal(v0[0], v1[0])
+    assert torch.equal(v0[0], v1[0]) and torch.equal(v1[0], e1[0])
     assert float((v0 - v1).abs().max()) <= 1e-6
     if cap != "overflows":
         assert float((v1 - e1).abs().max()) <= 1e-6
@@ -1280,6 +1317,31 @@ def test_carve_volume_through_the_kernel(dev, monkeypatch, cap):
     assert torch.equal(vols[1], plain)
     assert torch.equal(vols[0][0], vols[1][0])
     assert float((vols[0] - vols[1]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("method", ["sort", "segment"])
+def test_ray_cast_visibility_on_the_card_matches_the_cpu(dev, method):
+    """``ray_cast_visibility`` on the card against the CPU, bit for bit,
+    on a 32³ grid of (k - 15.5)/32 coordinates whose occupied voxels form
+    a ball, seen by 4 cameras a quarter turn apart about y at distance 2
+    with f = 64 on 64x64 images: every coordinate, product and sum of the
+    projection and the distances is exact in float32, and the division and
+    square root round alike on both devices."""
+    from pose_splatter_torch.ops import carving as tc
+
+    g = (torch.arange(32, dtype=torch.float32) - 15.5) / 32
+    pts = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    occ = (pts ** 2).sum(-1) < 0.35 ** 2
+    Es = torch.zeros((4, 4, 4))
+    for i, (c, s) in enumerate(((1, 0), (0, 1), (-1, 0), (0, -1))):
+        Es[i, :3, :3] = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                                     dtype=torch.float32)
+        Es[i, 2, 3], Es[i, 3, 3] = 2.0, 1.0
+    Ks = torch.tensor([[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]]).expand(4, 3, 3)
+    cpu = tc.ray_cast_visibility(pts, occ, Ks, Es, 64, 64, method)
+    card = tc.ray_cast_visibility(*(x.to(dev) for x in (pts, occ, Ks, Es)),
+                                  64, 64, method)
+    assert int(cpu.sum()) > 0 and torch.equal(card.cpu(), cpu)
 
 
 @pytest.mark.parametrize("case", ["dists_dtype", "flat_dtype", "occ_shape",

@@ -11,6 +11,9 @@ rank a card, so the decomposition over ranks is held on the CPU
 (``test_torch_parallel_*.py``, gloo).
 """
 
+import contextlib
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +34,7 @@ from pose_splatter_torch.parallel.tile_sharding import (
     _padded_origins,
     make_tile_sharded_train_step,
 )
+from pose_splatter_torch.scripts import dbg_highres_sharded, scaling
 from pose_splatter_torch.train.loop import create_train_state, make_train_step
 from pose_splatter_torch.utils.synthetic import ring_cameras, synthetic_frames
 from pose_splatter_torch.utils.geometry import create_3d_grid
@@ -104,20 +108,29 @@ def test_dp_step_at_world_one_equals_make_train_step(group):
 def test_tile_step_kernel_against_tiled(group):
     """The (1, 1) tile step in kernel mode against the same step through
     the tiled compositor: losses within 1e-5 relative, updates within 1e-5
-    of the largest, running statistics unchanged."""
+    of the largest, running statistics unchanged, the same overflow; the
+    kernel step launches each compositor once a frame, the tiled one
+    none."""
     mesh = make_mesh((1, 1), ("data", "tile"))
     models = [_model(group) for _ in range(2)]
     models[1].net.load_state_dict(models[0].net.state_dict())
     w0 = {k: v.clone() for k, v in models[0].net.state_dict().items()}
-    losses = []
+    losses, overflow, launches = [], [], []
     for m, comp in zip(models, ("kernel", "tiled")):
         st = create_train_state(m, 1e-3)
         step = make_tile_sharded_train_step(
             m, torch.optim.SGD(m.net.parameters(), lr=1.0), 0.5, 0.1, mesh,
             tile_shape=(8, 64), tile_capacity=256, chunk=64, compositor=comp)
+        before = (K.composite_instances.launches,
+                  K.composite_instances_bwd.launches)
         _, loss = step(st, _batch(2))
+        launches.append((K.composite_instances.launches - before[0],
+                         K.composite_instances_bwd.launches - before[1]))
         losses.append(float(loss))
+        overflow.append(float(step.overflow))
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    assert overflow[0] == overflow[1]
+    assert launches == [(2, 2), (0, 0)]  # 2 frames
     sd = [m.net.state_dict() for m in models]
     top = max(float((sd[1][k] - w0[k]).abs().max()) for k in w0)
     for k in w0:
@@ -129,7 +142,8 @@ def test_tile_step_kernel_against_tiled(group):
 
 def test_rank_local_shards_stitch(group):
     """``_composite_local`` over the 4 row-aligned shards of a tile grid,
-    stitched, equals the same call over every tile at once (1e-6)."""
+    stitched, equals the same call over every tile at once (1e-6), one
+    forward launch a shard."""
     rng = np.random.default_rng(0)
     n = 300
     dev = group
@@ -150,14 +164,36 @@ def test_rank_local_shards_stitch(group):
             _alpha_ellipse, (8, 64), 256, 64, False, 0.0, "kernel")
     whole = _composite_local(origins, *args)
     T_l = origins.shape[0] // 4
+    before = K.composite_instances.launches
     parts = [_composite_local(origins[i * T_l:(i + 1) * T_l], *args)
              for i in range(4)]
+    assert K.composite_instances.launches - before == 4
     for j in range(2):
         torch.testing.assert_close(torch.cat([p[j] for p in parts]), whole[j],
                                    rtol=0, atol=1e-6)
 
 
 def test_dryrun_multichip_one_rank(group, capsys):
+    """Its two lines; the (data, tile) step launches each compositor once,
+    the tiled data-parallel step none."""
+    before = (K.composite_instances.launches,
+              K.composite_instances_bwd.launches)
     dryrun_multichip(1, device=group)
     out = capsys.readouterr().out
     assert out.count("dryrun_multichip(1) OK") == 2
+    assert (K.composite_instances.launches - before[0],
+            K.composite_instances_bwd.launches - before[1]) == (1, 1)
+
+
+def test_scaling_and_highres_probe_at_one_rank(group):
+    """``scripts/scaling.py`` (one row) and ``scripts/dbg_highres_sharded.py
+    --devices 1`` at a small size run in the group of one: a positive rate,
+    a finite loss."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = scaling.main([])
+        highres = dbg_highres_sharded.main([
+            "--devices", "1", "--steps", "2", "--width", "96", "--height",
+            "64", "--grid", "32", "--crop", "0,32,0,32,8,24", "--min-n", "16",
+            "--max-n", "256", "--carve-cap", "0"])
+    assert len(report["rows"]) == 1 and report["rows"][0]["steps_per_s"] > 0
+    assert highres["loss_finite"]

@@ -110,7 +110,11 @@ def test_temporal_sequence_card_against_cpu(dev, state):
 
 
 def test_temporal_main_on_the_card(dev, state, capsys):
+    """The default mode's report; one forward launch a frame of the
+    quality pass (the scene's frames) and of the sequence."""
+    before = K.composite_instances.launches
     rep = tb.main(["--state", state, "--length", "4"])
+    assert K.composite_instances.launches - before == T + 4
     assert rep["backend"] == "cuda" and rep["decode"] == "numpy"
     assert rep["sequence_frames"] == 4 and rep["ms_per_frame"] > 0
 

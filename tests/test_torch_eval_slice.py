@@ -283,11 +283,10 @@ def test_ssim_filters_without_tf32(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """The package and chip_smoke.py import with jax and flax absent, and
-    never load the JAX package; also with the optional packages that a
-    machine may lack (cv2, h5py, sklearn, joblib, zarr, matplotlib, PIL)
-    absent, since every module imports them inside the functions that use
-    them."""
+    """The package imports with jax and flax absent, and never loads the
+    JAX package; also with the optional packages that a machine may lack
+    (cv2, h5py, sklearn, joblib, zarr, matplotlib, PIL) absent, since every
+    module imports them inside the functions that use them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'cv2', 'h5py', 'sklearn', 'joblib', 'zarr',\n"
@@ -297,7 +296,6 @@ def test_port_imports_without_jax():
         "for m in pkgutil.walk_packages(pose_splatter_torch.__path__, "
         "'pose_splatter_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
         "assert not any(k.startswith('pose_splatter_tpu') for k in sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
