@@ -30,6 +30,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pose_splatter_torch.ops.conv3d import conv3d
+
 # Collects, per BatchNorm module, its updated (running_mean, running_var).
 NewStats = Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -98,6 +100,11 @@ class BatchNorm(nn.Module):
 
 
 class ConvBlock(nn.Module):
+    """(Conv3x3x3 → BN → LeakyReLU) × 2. In a train step on the card each
+    conv whose shape ``ops/conv3d.py::takes`` takes its weight and bias
+    gradients from the hand-written kernel (``ops/conv3d.py::conv3d``);
+    the forward is the module's own in every case."""
+
     def __init__(self, in_features: int, features: int,
                  negative_slope: float = 0.1):
         super().__init__()
@@ -108,8 +115,10 @@ class ConvBlock(nn.Module):
         self.negative_slope = negative_slope
 
     def forward(self, x, new_stats: Optional[NewStats] = None):
-        x = F.leaky_relu(self.bn0(self.conv0(x), new_stats), self.negative_slope)
-        return F.leaky_relu(self.bn1(self.conv1(x), new_stats), self.negative_slope)
+        x = F.leaky_relu(self.bn0(conv3d(self.conv0, x), new_stats),
+                         self.negative_slope)
+        return F.leaky_relu(self.bn1(conv3d(self.conv1, x), new_stats),
+                            self.negative_slope)
 
 
 def _max_pool3d(x: torch.Tensor) -> torch.Tensor:

@@ -69,7 +69,9 @@ OTHER = {"bench", "dbg_dyngather_micro", "preprocess", "synthetic_benchmark",
          "probe_common", "bench_breakdown", "dbg_rast_breakdown",
          "dbg_kernel_profile", "dbg_vmap_kernel", "dbg_gather_bwd",
          "dbg_bin_micro", "dbg_carve_micro", "dbg_model_breakdown",
-         "dbg_step_bisect", "dbg_dispatch_floor"}
+         "dbg_step_bisect", "dbg_dispatch_floor",
+         # The port's own probe (tests/test_torch_conv3d_wgrad.py).
+         "dbg_conv_wgrad_micro"}
 U8 = 1.0 / 255
 
 

@@ -6,7 +6,9 @@ at the 2D template in ``"tiled"`` mode, each cut to a small render and
 grid, with the kernels' launches read a unit from ``stages.trace``: one
 forward, one backward and one visibility launch a train step, one forward
 and one visibility launch a frame (the validation's ``make_eval_step`` and
-the renders), no compositor launch in tiled mode; then both compositors
+the renders), no compositor launch in tiled mode, and a weight-gradient
+launch for each conv the route sends to the kernel a train step, none a
+frame; then both compositors
 against their plain versions on a train step's own arrays; the same on a
 step and a served frame of the 2D north star and of the 3D template at
 their own sizes. The synthetic benchmark's entry point, and the temporal
@@ -43,6 +45,8 @@ from test_torch_cuda_kernels import (  # noqa: F401
     _small_run,
     bwd_tol,
     deterministic_cudnn,
+    hold_wgrad,
+    record_wgrad,
 )
 
 torch.set_num_threads(1)
@@ -104,6 +108,18 @@ def hold_kernels(rec):
     plain_err = (d_ref.double() - d64).abs().amax(dim=0)
     assert bool((kernel_err <= 2 * plain_err
                  + tol * d64.abs().amax(dim=0)).all())
+
+
+def routed_convs(config) -> int:
+    """The convs of the final U-Net at ``config``'s crop and width whose
+    weight gradients the route sends to ``csrc/conv3d_wgrad.cu``: its
+    launches a train step (the passthrough U-Nets' bodies run without a
+    graph)."""
+    from pose_splatter_torch.scripts.dbg_conv_wgrad_micro import unet_convs
+
+    crop = [hi - lo for lo, hi in config.volume_idx]
+    return sum(r["routed"]
+               for r in unet_convs(crop, config.get("base_filters", 8)))
 
 
 # ----------------------------------------------------------------------------
@@ -198,13 +214,17 @@ def test_entry_points_launch_each_kernel_once_a_unit(dev, tmp_path, preset):
     assert len(served) == VALID_FRAMES + RENDER_FRAMES
     assert len(steps) + len(served) == len(units)
     kernel = int(model.render_mode != "tiled")
+    wgrad = routed_convs(config)
+    assert wgrad == (0 if preset == "pigeon_4" else 4)
     for u in steps:
         assert u["launches"] == dict(composite_fwd=kernel,
                                      composite_bwd=kernel,
-                                     carve_visibility=1), u["launches"]
+                                     carve_visibility=1,
+                                     conv3d_wgrad=wgrad), u["launches"]
     for u in served:
         assert u["launches"] == dict(composite_fwd=kernel, composite_bwd=0,
-                                     carve_visibility=1), u["launches"]
+                                     carve_visibility=1,
+                                     conv3d_wgrad=0), u["launches"]
     assert max(u["gaussians_live"] for u in steps) == config.max_n
     assert np.isfinite(losses).all() and np.isfinite(vlosses).all()
     for k, p in model.net.named_parameters():
@@ -242,12 +262,15 @@ FULL = {
 
 
 @pytest.mark.parametrize("name", sorted(FULL))
-def test_kernels_hold_on_a_full_size_step_and_frame(dev, tmp_path, name):
+def test_kernels_hold_on_a_full_size_step_and_frame(dev, tmp_path, name,
+                                                     monkeypatch):
     """``train_from_config``'s fresh start and one step at the main path's
     size, then one more ``make_train_step`` step and one served frame
     (``render_images_in_memory``) recorded: both compositors against their
     plain versions on the step's own arrays (``hold_kernels``), the forward
-    on each of the frame's binned arrays (``hold_forward``)."""
+    on each of the frame's binned arrays (``hold_forward``); the step's 12
+    weight gradients from ``csrc/conv3d_wgrad.cu`` against float64 on the
+    scene's own activations and output gradients (``hold_wgrad``)."""
     from pose_splatter_torch.data.dataset import FrameLoader
     from pose_splatter_torch.train.evaluate import render_images_in_memory
     from pose_splatter_torch.train.loop import make_train_step
@@ -276,9 +299,13 @@ def test_kernels_hold_on_a_full_size_step_and_frame(dev, tmp_path, name):
                                   prefetch=0)))
     step = make_train_step(model, state.optimizer, config.img_lambda,
                            config.ssim_lambda)
+    calls = record_wgrad(monkeypatch)
     with stages.record(dev) as rec:
         step(state, batch)
     hold_kernels(rec)
+    assert len(calls) == routed_convs(config) == 12
+    for x, gy, out in calls:
+        hold_wgrad(x, gy, out, before_bn=True)
     with stages.record(dev) as rec:
         render_images_in_memory(model, FrameSet(
             {k: v[2:] for k, v in frames.items()}, views))
