@@ -70,6 +70,8 @@ ATTRIBUTES = [
     "save_every",
     "gaussian_mode",
     "gaussian_config",
+    # The visual-pose feature rig (``preprocess/visual_features.py``).
+    "visual_features",
 ]
 
 _DEFAULTS: Dict[str, Any] = {
@@ -85,6 +87,7 @@ _DEFAULTS: Dict[str, Any] = {
     "save_every": 10,
     "gaussian_mode": "3d",
     "gaussian_config": {},
+    "visual_features": {},
     "max_frames": None,
     "frame_jump": 1,
 }

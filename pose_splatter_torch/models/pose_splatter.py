@@ -680,16 +680,21 @@ class PoseSplatter(nn.Module):
 
     # ------------------------------------------------------------------
     def splat(self, means, quats, scales, opacities, colors, viewmats, Ks,
-              width: int, height: int, valid=None, radius_clip: float = 2.0):
+              width: int, height: int, valid=None, radius_clip: float = 2.0,
+              tile_expand: Optional[int] = None,
+              instance_cap: Optional[int] = None):
         """Render given world-space Gaussians (linear scales, opacities in
         [0, 1]) to cameras viewmats [B,4,4] / Ks [B,3,3] at any size
         (``pose_splatter.py:598-634``): the background by transmittance,
-        the colour clipped to [0, 1]. Returns rgb [B,H,W,3], alpha [B,H,W]."""
+        the colour clipped to [0, 1]. ``tile_expand`` (default the model's)
+        and ``instance_cap`` (rows a camera, default 4·N + T·G) are the
+        binning's caps. Returns rgb [B,H,W,3], alpha [B,H,W]."""
         rgb, alpha = rasterize(
             means, quats, scales, opacities, colors, viewmats, Ks, width,
             height, valid=valid, backgrounds=None, near_plane=0.01,
             far_plane=1e10, radius_clip=radius_clip, mode=self.render_mode,
             tile_shape=self.tile_shape, tile_capacity=self.tile_capacity,
-            tile_expand=self.tile_expand)
+            tile_expand=tile_expand or self.tile_expand,
+            instance_cap=instance_cap)
         rgb = rgb + (1.0 - alpha[..., None]) * self.background_color
         return torch.clamp(rgb, 0.0, 1.0), alpha

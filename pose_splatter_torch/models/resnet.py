@@ -23,7 +23,7 @@ end with untrained features.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,18 +118,20 @@ def load_resnet_weights(model: ResNet18, state_dict: Dict[str, torch.Tensor]
 
 
 def create_feature_extractor(
-    weights_path: Optional[str] = None,
+    weights: Union[str, Mapping[str, torch.Tensor], None] = None,
     device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], ResNet18]:
     """Returns (extract: [B,H,W,3] in [0,1] → [B,512], the module) on
-    ``device``. Weights from ``weights_path`` (torchvision keys, ``.pth`` or
-    ``.npz``), else Flax's initialisers drawn from ``generator`` (default:
-    a CPU generator seeded 0)."""
+    ``device``. Weights from ``weights``: a file (torchvision keys, ``.pth``
+    or ``.npz``) or a state dict with those keys; else Flax's initialisers
+    drawn from ``generator`` (default: a CPU generator seeded 0)."""
     dev = resolve_device(device)
     model = ResNet18()
-    if weights_path:
-        dropped = load_resnet_weights(model, load_torch_state_dict(weights_path))
+    if isinstance(weights, str):
+        weights = load_torch_state_dict(weights)
+    if weights is not None:
+        dropped = load_resnet_weights(model, weights)
         if dropped:
             print(f"resnet18: left out {', '.join(dropped)}")
     else:

@@ -356,6 +356,7 @@ class Instances(NamedTuple):
     overflow: torch.Tensor  # [] int64: instances dropped by either cap
     n_ty: int
     n_tx: int
+    span: torch.Tensor      # [B, N] int64: tiles each Gaussian spans (0: none)
 
 
 def bin_instances(packed, center, radius, valid, height: int, width: int,
@@ -374,7 +375,7 @@ def bin_instances(packed, center, radius, valid, height: int, width: int,
     mcap = instance_rows(N, T, expand, chunk, cap=instance_cap)
     # Zero-sanitize invalid rows: zero opacity keeps them inert.
     packed = torch.where(valid[..., None], packed, torch.zeros_like(packed))
-    dest, src, astarts, counts, overflow = _build_instances(
+    dest, src, astarts, counts, overflow, span = _build_instances(
         center.detach(), radius.detach(), valid, n_ty, n_tx, tile_shape,
         expand, chunk, mcap)
     inst = gather_instances(packed, dest, src, mcap)  # [B, mcap, 16]
@@ -385,7 +386,7 @@ def bin_instances(packed, center, radius, valid, height: int, width: int,
         astarts=(astarts + offs).reshape(-1).contiguous(),
         counts=counts.reshape(-1).contiguous(),
         origins=origins.repeat(B, 1).contiguous(),
-        overflow=overflow.sum(), n_ty=n_ty, n_tx=n_tx)
+        overflow=overflow.sum(), n_ty=n_ty, n_tx=n_tx, span=span)
 
 
 def untile(rgb_t, alpha_t, B: int, n_ty: int, n_tx: int,
@@ -409,7 +410,7 @@ def _composite_instances(packed, center, radius, valid, mode: str,
     alpha [B,H,W] and the total overflow count."""
     b = bin_instances(packed, center, radius, valid, height, width,
                       tile_shape, chunk, expand, instance_cap)
-    stages.binned(b.counts, b.overflow)
+    stages.binned(b.counts, b.overflow, b.span, expand)
     stages.end("binning", b, then="kernel")
     rgb_t, alpha_t = composite_with_grad(
         b.inst, b.astarts, b.counts, b.origins, tile_shape, chunk, mode)
@@ -441,6 +442,7 @@ def rasterize(
     tile_expand: Optional[int] = None,
     mode: str = "kernel",
     return_overflow: bool = False,
+    instance_cap: Optional[int] = None,
 ):
     """3D Gaussian splatting for a batch of cameras (``rasterize.py:531-695``).
 
@@ -458,6 +460,8 @@ def rasterize(
     projected radius into ``tile_shape`` tiles of at most
     ``tile_capacity`` (default min(N, 4096)) and composites them per
     camera; ``"global"`` (the oracle) composites them on every pixel.
+    ``tile_expand`` (default 8) and ``instance_cap`` (rows a camera, default
+    4·N + T·chunk) are the ``"kernel"`` binning's caps (:func:`bin_instances`).
 
     Returns rgb [B,H,W,3], alpha [B,H,W] (+ the overflow count [] if
     requested: instances, or in ``"tiled"`` mode Gaussians, dropped by the
@@ -487,7 +491,7 @@ def rasterize(
         rgb, alpha, overflow = _composite_instances(
             packed, packed[..., 0:2], packed[..., 10], ok_s, "conic", height,
             width, tile_shape or DEFAULT_TILE, chunk or DEFAULT_CHUNK,
-            tile_expand or DEFAULT_EXPAND)
+            tile_expand or DEFAULT_EXPAND, instance_cap)
     elif mode in ("global", "tiled"):
         outs = []
         for b in range(B):

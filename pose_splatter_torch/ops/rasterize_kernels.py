@@ -6,7 +6,9 @@ its binning circle touches, and the copies are laid out in one flat array,
 grouped by tile in compositing order, each tile's segment padded to a
 multiple of G rows (``_build_instances``, ``gather_instances``). Two finite
 capacities are truncated and COUNTED, never silent: Gaussians spanning more
-than ``expand`` tiles, and segment rows past the array's ``mcap`` rows.
+than ``expand`` tiles (and each Gaussian's span is returned, so that a
+trace can count the Gaussians clamped), and segment rows past the array's
+``mcap`` rows.
 ``gather_instances``' backward reduces instance-row gradients back onto the
 Gaussians with a gather, as the JAX package's custom VJP does, and
 ``permute_rows`` (the 3D depth order) gathers by the inverse permutation.
@@ -98,7 +100,9 @@ def _build_instances(center, radius, valid, n_ty: int, n_tx: int,
         src      [B, N*expand] int64: source Gaussian;
         astarts  [B, T] int32: each tile's first row (multiple of G);
         counts   [B, T] int32: per-tile instance count (capacity-clamped);
-        overflow [B] int64: instances dropped by either cap.
+        overflow [B] int64: instances dropped by either cap;
+        span     [B, N] int64: tiles each Gaussian's circle spans, before
+                 the ``expand`` clamp (0 off the image).
 
     A slot's row is its tile's start plus the number of earlier Gaussians
     that hit the same tile. The JAX code takes that from an exclusive
@@ -169,7 +173,7 @@ def _build_instances(center, radius, valid, n_ty: int, n_tx: int,
     src = torch.where(ok, gid.expand_as(row), torch.zeros_like(row))
     return (dest.reshape(B, -1), src.reshape(B, -1),
             astarts_c.to(torch.int32), counts_c.to(torch.int32),
-            overflow_span + overflow_cap)
+            overflow_span + overflow_cap, span)
 
 
 def _slot_rank(flat: torch.Tensor, counts_all: torch.Tensor) -> torch.Tensor:

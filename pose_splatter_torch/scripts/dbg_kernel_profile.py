@@ -57,7 +57,7 @@ def run(chunk: int = DEFAULT_CHUNK, tile=DEFAULT_TILE, full: bool = False,
         return K._build_instances(mean2d, rad, ok, n_ty, n_tx, tile, EXPAND,
                                   chunk, mcap)
 
-    dest, src, astarts, counts, overflow = build()
+    dest, src, astarts, counts, overflow = build()[:5]
     astarts, counts = astarts[0].contiguous(), counts[0].contiguous()
     inst_line = dict(total_instances=int(counts.sum()),
                      overflow=int(overflow.sum()),

@@ -64,7 +64,7 @@ def run(device="cuda", seed: int = 0, iters: int = 20, H: int = H,
                                   chunk, mcap)
 
     probe.time("bin only", bin_only)
-    dest, src, astarts, counts, overflow = bin_only()
+    dest, src, astarts, counts, overflow = bin_only()[:5]
     total, biggest, over = (int(counts.sum()), int(counts.max()),
                             int(overflow.sum()))
     print("counts: total inst=%d max tile=%d overflow=%d"

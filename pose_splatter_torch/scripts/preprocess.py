@@ -16,7 +16,9 @@ The same subcommands and arguments as the JAX script, plus ``--device``
 the device work is in ``center_rotation``, ``crop_indices`` and
 ``visual_features``. ``visual_features`` loads the port's checkpoint
 (``train/loop.py::load_checkpoint``; default: the config's) and a
-torchvision ResNet18 ``.pth`` (or ``.npz``) with ``--resnet_weights``.
+torchvision ResNet18 ``.pth`` (or ``.npz``) with ``--resnet_weights``;
+its rig is the config's ``visual_features`` block (``L``, ``size``,
+``fov_deg``, ``radius``, ``tile_expand``, ``instance_cap``; README).
 """
 
 from __future__ import annotations

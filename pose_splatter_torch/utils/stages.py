@@ -3,8 +3,10 @@ its own blocking reads of the device, and the synchronising recording.
 
 **Units and spans.** A unit is one train step (``step``,
 ``make_train_step``'s ``train_step``), one forward outside a step
-(``frame``, ``PoseSplatter.forward``) or one K-step call (``multi_step``,
-``MultiStep``). Inside a unit each stage is a span with its own start and
+(``frame``, ``PoseSplatter.forward``), one K-step call (``multi_step``,
+``MultiStep``) or one frame of the visual-pose features (``features``,
+``preprocess/visual_features.py``: the stages of a forward, then
+``resnet`` and ``sh``). Inside a unit each stage is a span with its own start and
 end, a parent and the unit's id: ``frame`` (a forward inside a step) with
 ``carve``, ``unets``, ``select_head``, ``binning`` (with the projection
 and depth sort in 3D), ``kernel`` and ``untile``; then ``loss``,
@@ -38,8 +40,9 @@ clock read, no allocation.
 **Counters**, a unit: ``host_syncs``, the blocking reads of the device the
 program made (counted always, process-wide in :data:`host_syncs`);
 ``sync_wait_ms``, the host ms blocked in them (the ``sync`` spans, while
-tracing); the binning's rows kept and dropped, a record a call
-(:func:`binned`; device tensors until the record is read); the
+tracing); the binning's rows kept and dropped, and its Gaussians binned
+and those whose tile span it clamped, a record a call (:func:`binned`;
+device tensors until the record is read); the
 selection's voxels above its final threshold and Gaussians kept, a record
 a call (:func:`selected`; device tensors until read); the largest
 ``allocated_bytes`` of the CUDA caching allocator seen at the unit's span
@@ -363,10 +366,13 @@ def to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def binned(counts: torch.Tensor, overflow: torch.Tensor):
-    """A binning call's record: rows binned a tile, rows dropped."""
+def binned(counts: torch.Tensor, overflow: torch.Tensor,
+           span: Optional[torch.Tensor] = None, expand: Optional[int] = None):
+    """A binning call's record: rows binned a tile, rows dropped, and each
+    Gaussian's tile span with the ``expand`` it was clamped to (counted
+    when the record is read: the Gaussians binned and those clamped)."""
     if _unit is not None:
-        _unit.binning.append((counts, overflow))
+        _unit.binning.append((counts, overflow, span, expand))
 
 
 def selected(values: torch.Tensor, threshold: torch.Tensor,
@@ -427,8 +433,10 @@ class StageTrace:
                               end_ms=1e3 * (sp.t1 - st.host),
                               host_ms=host_ms, device_ms=device_ms,
                               lag_ms=lag))
-        kept = sum(int(c.long().sum()) for c, _ in u.binning)
-        dropped = sum(int(o) for _, o in u.binning)
+        kept = sum(int(b[0].long().sum()) for b in u.binning)
+        dropped = sum(int(b[1]) for b in u.binning)
+        clamped = [int((b[2] > b[3]).sum()) for b in u.binning if b[2] is not None]
+        gaussians = [int((b[2] > 0).sum()) for b in u.binning if b[2] is not None]
         sel = [[int(x) for x in s.tolist()] for s in u.selection]
         return dict(id=u.id, name=u.spans[0].name, spans=spans,
                     host_syncs=u.syncs,
@@ -436,6 +444,8 @@ class StageTrace:
                                      if s["name"] == "sync"),
                     launches=dict(u.launches), binning_calls=len(u.binning),
                     binned_rows=kept, dropped_rows=dropped,
+                    binned_gaussians=sum(gaussians) if gaussians else None,
+                    clamped_gaussians=sum(clamped) if clamped else None,
                     selection_calls=len(sel),
                     above_threshold=sum(a for a, _ in sel) if sel else None,
                     gaussians_live=sum(n for _, n in sel) if sel else None,

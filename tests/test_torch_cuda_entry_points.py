@@ -15,7 +15,8 @@ their own sizes. The synthetic benchmark's entry point, and the temporal
 benchmark's quality pass on the state it saved; the checkpoint round trip
 through the JAX payload tree; ``graft_entry.entry`` against its CPU run; novel views, the
 evaluation's metrics and LPIPS, and the Gaussian export against the CPU;
-``profile_model`` and a trace; a forward with the carve's visibility cap
+``profile_model`` and a trace; the visual-pose features with the
+benchmark's rig against the CPU; a forward with the carve's visibility cap
 against one without; and the stage-attribution probes with their
 compositor launches and the checks they carry.
 
@@ -471,6 +472,42 @@ def test_graft_entry_on_the_card_matches_the_cpu(dev):
 
 def _frame(stack):
     return tuple(stack[k][0] for k in ("mask", "img", "p_3d", "angle"))
+
+
+def test_visual_features_with_the_configured_rig_on_the_card(dev, tmp_path):
+    """``calculate_visual_features``, the preprocessing's entry point, with
+    ``benchmark/configs/rtx3060_3d_features.json``'s ``visual_features``
+    block (the 32-view rig of 224² at L = 3, its caps) on one frame of the
+    small 3D model, on the card against the CPU: the float16 features
+    within 1e-3 of the largest; on the card one forward compositor launch
+    a frame and no instance row dropped."""
+    from pose_splatter_torch.config import Config
+    from pose_splatter_torch.preprocess.visual_features import (
+        calculate_visual_features,
+    )
+    from pose_splatter_torch.utils.synthetic import FrameSet
+
+    block = json.loads((ROOT / "benchmark/configs/rtx3060_3d_features.json")
+                       .read_text())["visual_features"]
+    outs = []
+    for d in ("cpu", dev):
+        make, stack, _ = _small_run(d, "3d")
+        frames = {k: np.asarray(v[:1]) for k, v in stack.items()}
+        data = FrameSet(frames, range(frames["mask"].shape[1]))
+        config = Config({"project_directory": str(tmp_path), "feature_fn": "f.npy",
+                         "visual_features": block})
+        before = _launches()[0]
+        with stages.trace(d):
+            outs.append(calculate_visual_features(config, make(), data,
+                                                  progress=False))
+        unit = stages.last_trace().units[-1]
+        assert unit["dropped_rows"] == 0 and unit["binned_rows"] > 0
+    torch.cuda.synchronize()
+    assert _launches()[0] - before == 1 == unit["launches"]["composite_fwd"]
+    assert outs[0].shape == (1, 16, 512) and outs[0].dtype == np.float16
+    ref = outs[0].astype(np.float32)
+    err = float(np.abs(outs[1].astype(np.float32) - ref).max())
+    assert err <= 1e-3 * float(np.abs(ref).max()), err
 
 
 def test_novel_views_on_the_card(dev):

@@ -1329,9 +1329,11 @@ def test_lpips_on_the_card_matches_the_cpu(dev, tmp_path):
     assert torch.allclose(got, ref, rtol=1e-4, atol=0)
 
 
-def _rig_run(dev):
+def _rig_run(dev, rig=None, sigma=None):
     """The small 3D model on ``dev`` and the rig's frame function (L = 1:
-    8 views at 224²), ResNet18 from one generator seed."""
+    8 views at 224²; ``rig``: a ``visual_features`` block), ResNet18 from
+    one generator seed. With ``sigma`` every Gaussian is a sphere of that
+    size (the head's last layer zeroed, the shared log-scale log(sigma))."""
     from pose_splatter_torch.models.pose_splatter import PoseSplatter
     from pose_splatter_torch.preprocess.visual_features import make_frame_features
     from pose_splatter_torch.utils.geometry import create_3d_grid
@@ -1341,13 +1343,19 @@ def _rig_run(dev):
     Ks, Es = ring_cameras(C, W, H, focal=focal, radius=0.6)
     model = PoseSplatter(Ks, Es, W, H, render_mode="kernel", device=dev, seed=0,
                          **kw)
+    if sigma is not None:
+        with torch.no_grad():
+            model.net.head2.weight.zero_()
+            model.net.head2.bias.zero_()
+            model.net.scale.fill_(float(np.log(sigma)))
     grid = create_3d_grid(kw["ell"], kw["grid_size"], kw["volume_idx"])
     f = synthetic_frames(Ks, Es, H, W, grid.reshape(-1, 3).mean(0), axes,
                          n_frames=1, seed=0)
     obs = model.observed_views
     frame = (f["mask"][0, obs], f["img"][0, obs], f["p_3d"][0],
              np.float32(f["angle"][0]), np.float32(0.7))
-    fn = make_frame_features(model, 1, None, torch.Generator().manual_seed(3))
+    fn = make_frame_features(model, 1, None, torch.Generator().manual_seed(3),
+                             rig=rig)
     return fn, frame
 
 
@@ -1365,6 +1373,35 @@ def test_visual_features_on_the_card_match_the_cpu(dev):
             launches = tk.composite_instances.launches - before
     assert outs[0].shape == (4, 512)
     assert launches == 1
+    err = float((outs[0] - outs[1]).abs().max())
+    assert err <= 1e-4 * float(outs[0].abs().max()), err
+
+
+def test_visual_features_with_the_configured_rig(dev):
+    """The frame with ``benchmark/configs/rtx3060_3d_features.json``'s
+    ``visual_features`` block (at L = 1) on the card against the CPU,
+    within 1e-4 of the largest, on Gaussians of 6 mm (31 px on the rig,
+    inside the caps' margin; the benchmark's are 4 mm); traced: one
+    forward compositor launch, no instance row dropped and no tile span
+    clamped."""
+    import json
+    from pathlib import Path
+
+    block = json.loads((Path(__file__).resolve().parent.parent / "benchmark"
+                        / "configs" / "rtx3060_3d_features.json").read_text())[
+        "visual_features"]
+    outs = []
+    for d in ("cpu", dev):
+        fn, frame = _rig_run(d, block, sigma=0.006)
+        with stages.trace(d):
+            outs.append(fn(*frame).cpu())
+        unit = stages.last_trace().units[-1]
+        assert unit["name"] == "features"
+        assert unit["dropped_rows"] == 0 and unit["clamped_gaussians"] == 0
+        assert unit["binned_gaussians"] > 0
+    assert unit["launches"]["composite_fwd"] == 1
+    # The four host inputs' copies and theta's, and the selection flag.
+    assert unit["host_syncs"] == 6
     err = float((outs[0] - outs[1]).abs().max())
     assert err <= 1e-4 * float(outs[0].abs().max()), err
 
