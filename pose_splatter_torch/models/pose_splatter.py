@@ -15,7 +15,8 @@ observed views (``temp_K``) and a triangulated seed from a host hook
 ``temp_K`` around the seed, and the render uses ``temp_K`` too.
 ``carve_visibility_cap`` sizes the carve's compacted visibility pair;
 ``remat_unets`` recomputes each U-Net's activations in the backward
-(``torch.utils.checkpoint``).
+(``torch.utils.checkpoint``). An eval forward on the card replays its
+U-Net stack as one CUDA graph (:meth:`PoseSplatterNet.process_volume`).
 """
 
 from __future__ import annotations
@@ -241,6 +242,44 @@ def take_rows_unique(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, idx)
 
 
+# Eager eval calls at a new input layout before its U-Net stack is
+# captured: the first times cuDNN's candidate algorithms (``utils/device.py``),
+# so nothing is timed inside the capture.
+UNET_GRAPH_WARMUP = 2
+
+
+class _UnetGraph:
+    """One input layout's eval U-Net stack: its eager warm-up calls left,
+    then the CUDA graph, its static input and output, and the data
+    pointers of the final U-Net's parameters and buffers it reads. The
+    class's ``launches`` counts the replays of every net, reported a unit
+    as ``launches["unets_graph"]`` (``utils/stages.py``)."""
+
+    __slots__ = ("warmup_left", "graph", "static_in", "static_out",
+                 "weights")
+    launches = 0
+
+    def __init__(self):
+        self.warmup_left = UNET_GRAPH_WARMUP
+        self.graph = self.static_in = self.static_out = self.weights = None
+
+
+stages.count_launches("unets_graph", _UnetGraph)
+
+
+def _data_ptrs(module: nn.Module, out: list) -> list:
+    """The data pointers of ``module``'s parameters and buffers, depth
+    first, appended to ``out``: the module dicts walked directly, at a
+    third of ``named_parameters``' host cost."""
+    for t in module._parameters.values():
+        out.append(None if t is None else t.data_ptr())
+    for t in module._buffers.values():
+        out.append(None if t is None else t.data_ptr())
+    for m in module._modules.values():
+        _data_ptrs(m, out)
+    return out
+
+
 class PoseSplatterNet(nn.Module):
     """Trainable parameters: U-Net stack, Gaussian MLP head, scale offset.
     Module names follow the Flax module so the weight bridge is a rename.
@@ -248,7 +287,10 @@ class PoseSplatterNet(nn.Module):
     ``remat`` runs each U-Net under ``torch.utils.checkpoint`` (Flax's
     ``nn.remat``, ``pose_splatter.py:108-168``): only its input is kept for
     the backward, which runs its forward again. The parameters and their
-    names do not change, so one bridge and one checkpoint serve both."""
+    names do not change, so one bridge and one checkpoint serve both.
+
+    ``unet_graph_captures`` and ``unet_graph_replays`` count the eval U-Net
+    stack's CUDA-graph captures and replays (:meth:`process_volume`)."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 8,
                  base_filters: int = 8, num_unets: int = 3,
@@ -272,6 +314,9 @@ class PoseSplatterNet(nn.Module):
         flax_init_(self.head1)
         flax_init_(self.head2)
         self.scale = nn.Parameter(torch.full((1,), -5.5))
+        self._unet_graphs: Dict[tuple, _UnetGraph] = {}
+        self.unet_graph_captures = 0
+        self.unet_graph_replays = 0
 
     def process_volume(self, volume: torch.Tensor,
                        new_stats: Optional[Dict[str, torch.Tensor]] = None
@@ -282,12 +327,94 @@ class PoseSplatterNet(nn.Module):
         dict, it runs in train mode (batch statistics, Flax's
         ``mutable=["batch_stats"]``) and fills the dict with the updated
         running statistics under their buffer names; the buffers themselves
-        are not written."""
+        are not written.
+
+        Where :meth:`unet_graph_engages`, the U-Net stack runs as a CUDA
+        graph of the eval body (:meth:`_unet_stack`), one for each input
+        layout (shape, strides, dtype, device): its first
+        ``UNET_GRAPH_WARMUP`` calls run eagerly on a side stream, the next
+        captures it and every call from then on copies the volume into the
+        graph's static input, replays and returns a clone of the static
+        output, so no caller's result is overwritten by a later replay. The
+        graph reads the parameters and buffers in place, so in-place
+        updates (an optimizer step, ``load_state_dict``, the train loop's
+        running statistics) reach the next replay; a changed storage (a
+        ``.to()``, a re-assigned parameter) is found by the final U-Net's
+        data pointers, checked each replay, and the graph is captured
+        again. The same kernels run on the same inputs, so a replay equals
+        the eager body bit for bit. A capture that fails raises."""
         if self.ablation:
             v = volume[0]
             pad = torch.zeros(v.shape[:-1] + (self.out_channels - self.in_channels,),
                               dtype=v.dtype, device=v.device)
             return torch.cat([v, pad], -1).reshape(-1, self.out_channels).T
+        if self.unet_graph_engages(volume.device, new_stats):
+            with torch.cuda.device(volume.device):
+                return self._unet_graph(volume)
+        return self._unet_stack(volume, new_stats)
+
+    def unet_graph_engages(self, device: torch.device,
+                           new_stats: Optional[Dict] = None) -> bool:
+        """Whether :meth:`process_volume` of a volume on ``device`` runs
+        its U-Net stack as a CUDA graph: a CUDA device, eval statistics
+        (``new_stats`` None), grad mode off, a net with U-Nets (not
+        ``ablation``) and a current stream that is not capturing already
+        (captures do not nest: inside an outer capture the stack is part of
+        that graph). Everywhere else the stack runs eagerly."""
+        return (device.type == "cuda" and new_stats is None
+                and not torch.is_grad_enabled() and not self.ablation
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _unet_graph(self, volume: torch.Tensor) -> torch.Tensor:
+        key = (volume.shape, volume.stride(), volume.dtype, volume.device)
+        g = self._unet_graphs.get(key)
+        if g is None:
+            g = self._unet_graphs[key] = _UnetGraph()
+        if g.graph is None and g.warmup_left > 0:
+            g.warmup_left -= 1
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = self._unet_stack(volume)
+            main.wait_stream(side)
+            out.record_stream(main)
+            return out
+        if g.graph is None or g.weights != _data_ptrs(self.final_unet, []):
+            self._capture_unets(g, volume)
+        g.static_in.copy_(volume)
+        g.graph.replay()
+        self.unet_graph_replays += 1
+        _UnetGraph.launches += 1
+        return g.static_out.clone()
+
+    def _capture_unets(self, g: _UnetGraph, volume: torch.Tensor):
+        """Capture the eval U-Net stack over a static input of ``volume``'s
+        layout into ``g``, dropping any graph ``g`` held. The static
+        buffers are ordinary tensors even under ``torch.inference_mode``,
+        so replays outside it may write them."""
+        g.graph = g.static_in = g.static_out = None
+        with torch.inference_mode(False), torch.no_grad():
+            # The volume's own strides: the served volume is a permuted
+            # view whose NCDHW permute is contiguous, and a contiguous
+            # static input would send the convs to other cuDNN kernels.
+            g.static_in = torch.empty_strided(
+                volume.shape, volume.stride(), dtype=volume.dtype,
+                device=volume.device)
+            graph = torch.cuda.CUDAGraph()
+            # Only this thread's calls are held to the capture's rules: a
+            # server's other threads may use the card meanwhile.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                g.static_out = self._unet_stack(g.static_in)
+        g.graph = graph
+        g.weights = _data_ptrs(self.final_unet, [])
+        self.unet_graph_captures += 1
+
+    def _unet_stack(self, volume: torch.Tensor,
+                    new_stats: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+        """The U-Net stack run eagerly: :meth:`process_volume` without the
+        ablation and the graph."""
         collect: Optional[NewStats] = None if new_stats is None else {}
         v = volume.permute(0, 4, 1, 2, 3)  # NCDHW
         for unet in self.unets:

@@ -6,9 +6,10 @@ at the 2D template in ``"tiled"`` mode, each cut to a small render and
 grid, with the kernels' launches read a unit from ``stages.trace``: one
 forward, one backward and one visibility launch a train step, one forward
 and one visibility launch a frame (the validation's ``make_eval_step`` and
-the renders), no compositor launch in tiled mode, and a weight-gradient
+the renders), no compositor launch in tiled mode, a weight-gradient
 launch for each conv the route sends to the kernel a train step, none a
-frame; then both compositors
+frame, and one replay of the U-Net stack's CUDA graph a frame after its
+warm-up frames, none a step; then both compositors
 against their plain versions on a train step's own arrays; the same on a
 step and a served frame of the 2D north star and of the 3D template at
 their own sizes. The synthetic benchmark's entry point, and the temporal
@@ -37,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from pose_splatter_torch.models.pose_splatter import UNET_GRAPH_WARMUP
 from pose_splatter_torch.ops import rasterize as tr
 from pose_splatter_torch.ops import rasterize_kernels as tk
 from pose_splatter_torch.utils import stages
@@ -221,11 +223,17 @@ def test_entry_points_launch_each_kernel_once_a_unit(dev, tmp_path, preset):
         assert u["launches"] == dict(composite_fwd=kernel,
                                      composite_bwd=kernel,
                                      carve_visibility=1,
-                                     conv3d_wgrad=wgrad), u["launches"]
-    for u in served:
-        assert u["launches"] == dict(composite_fwd=kernel, composite_bwd=0,
-                                     carve_visibility=1,
-                                     conv3d_wgrad=0), u["launches"]
+                                     conv3d_wgrad=wgrad,
+                                     unets_graph=0), u["launches"]
+    # The served frames' U-Net stack: eager for its warm-up frames, then
+    # one replay of its CUDA graph a frame (the capturing frame's too).
+    for i, u in enumerate(served):
+        assert u["launches"] == dict(
+            composite_fwd=kernel, composite_bwd=0, carve_visibility=1,
+            conv3d_wgrad=0, unets_graph=int(i >= UNET_GRAPH_WARMUP)
+        ), (i, u["launches"])
+    assert model.net.unet_graph_captures == 1
+    assert model.net.unet_graph_replays == len(served) - UNET_GRAPH_WARMUP
     assert max(u["gaussians_live"] for u in steps) == config.max_n
     assert np.isfinite(losses).all() and np.isfinite(vlosses).all()
     for k, p in model.net.named_parameters():

@@ -258,9 +258,11 @@ def test_launches_and_binning_a_unit(setup, monkeypatch):
         setup.frame(1)
     step, frame = stages.last_trace().units
     assert step["launches"] == dict(composite_fwd=1, composite_bwd=1,
-                                    carve_visibility=1, conv3d_wgrad=0)
+                                    carve_visibility=1, conv3d_wgrad=0,
+                                    unets_graph=0)
     assert frame["launches"] == dict(composite_fwd=1, composite_bwd=0,
-                                     carve_visibility=1, conv3d_wgrad=0)
+                                     carve_visibility=1, conv3d_wgrad=0,
+                                     unets_graph=0)
     for u in (step, frame):
         assert u["binning_calls"] == 1
         assert u["binned_rows"] > 0 and u["dropped_rows"] >= 0
@@ -364,7 +366,8 @@ def test_host_syncs_match_torch_on_the_card(preset):
     def frame():  # the serving loop's call: the view as a host int
         model(*args, held)
 
-    for fn in (train, frame, train, frame):  # build and warm
+    # Build and warm: the frame's U-Net graph is captured at its third call.
+    for fn in (train, frame, train, frame, frame):
         fn()
     torch.cuda.synchronize()
     reported = {}
@@ -387,9 +390,11 @@ def test_host_syncs_match_torch_on_the_card(preset):
             assert unit["host_syncs"] == reported[fn]
     step_u, frame_u = stages.last_trace().units
     assert step_u["launches"] == dict(composite_fwd=1, composite_bwd=1,
-                                      carve_visibility=1, conv3d_wgrad=12)
+                                      carve_visibility=1, conv3d_wgrad=12,
+                                      unets_graph=0)
     assert frame_u["launches"] == dict(composite_fwd=1, composite_bwd=0,
-                                       carve_visibility=1, conv3d_wgrad=0)
+                                       carve_visibility=1, conv3d_wgrad=0,
+                                       unets_graph=1)
     if preset == "3d":
         return
     # A K-step call: its eager warm-up steps have spans; the captured step
