@@ -12,7 +12,8 @@ and train mode:
 With ``adaptive_camera`` each frame brings its own intrinsics for the
 observed views (``temp_K``) and a triangulated seed from a host hook
 (:meth:`PoseSplatter.make_adaptive_fn`): the mask is carved through
-``temp_K`` around the seed, and the render uses ``temp_K`` too.
+``temp_K`` around the seed, and the render uses ``temp_K`` too; each such
+forward keeps an ``adaptive`` record (``utils/stages.py``).
 ``carve_visibility_cap`` sizes the carve's compacted visibility pair;
 ``remat_unets`` recomputes each U-Net's activations in the backward
 (``torch.utils.checkpoint``). An eval forward on the card replays its
@@ -562,6 +563,10 @@ class PoseSplatter(nn.Module):
         # the model's default is 16 (pose_splatter.py:287-295).
         te = self.gaussian_config.get("tile_expand")
         self.tile_expand = int(te) if te is not None else 16
+        # Max instance rows a camera in the 3D kernel-mode binning
+        # (overflow counted); None is the JAX package's 4·N + T·G.
+        cap = self.gaussian_config.get("instance_cap")
+        self.instance_cap = int(cap) if cap is not None else None
         # Anchor each 2D Gaussian at the projection of its pose-transformed
         # voxel center into the requested view; the MLP's means become a
         # pixel delta (a framework extension of the JAX package).
@@ -725,7 +730,7 @@ class PoseSplatter(nn.Module):
                 valid=g["valid"], backgrounds=self.background_color,
                 tile_shape=self.tile_shape, tile_capacity=self.tile_capacity,
                 tile_expand=self.tile_expand, mode=self.render_mode,
-                return_overflow=True)
+                return_overflow=True, instance_cap=self.instance_cap)
         B = view_idx.shape[0]
         if "anchor_means" in g:
             pix = project_points(g["anchor_means"], Ks[view_idx],
@@ -756,7 +761,8 @@ class PoseSplatter(nn.Module):
         ``temp_K`` and seed for this frame (:meth:`make_adaptive_fn`). The
         carve grid sits at ``carve_center``; the pose transform keeps
         ``p_3d``; ``temp_K`` drives the mask's projection and the render of
-        the observed views (the holdout views keep their intrinsics).
+        the observed views (the holdout views keep their intrinsics). Such
+        a forward keeps ``stages.adaptive``'s record.
 
         Eval (the default): no graph, BN on the running statistics; returns
         rgb [B,H,W,3], alpha [B,H,W] (+ overflow [] if requested).
@@ -788,6 +794,12 @@ class PoseSplatter(nn.Module):
     def _forward(self, mask, img, p_3d, angle, view_idx, new_stats,
                  K_mask=None, carve_center=None):
         center = p_3d if carve_center is None else carve_center
+        if K_mask is not None:
+            # Each on the device once, for the carve, the record and the
+            # render alike.
+            K_mask, center, p_3d = (self._tensor(x) for x in (K_mask, center,
+                                                               p_3d))
+            stages.adaptive(K_mask, self.Ks_obs, center, p_3d, self.voxel_size)
         g, _ = self.frame_gaussians(mask, img, center, angle, K_mask,
                                     new_stats)
         if self.gaussian_mode == "3d":

@@ -22,9 +22,12 @@ import numpy as np
 import torch
 
 from pose_splatter_torch.ops.ssim import ssim as ssim_fn
+from pose_splatter_torch.utils import stages
 from pose_splatter_torch.utils.device import resolve_device
 
 METRIC_NAMES = ("l1", "iou", "soft_iou", "ssim", "psnr")
+# The adaptive camera's host hook, a unit of its own while tracing.
+_ADAPTIVE = stages.Scope("adaptive")
 
 
 def _rendered_frames(model, dataset) -> Iterator[np.ndarray]:
@@ -37,7 +40,8 @@ def _rendered_frames(model, dataset) -> Iterator[np.ndarray]:
         mask, img, p_3d, angle, _ = dataset.get(i, view_idx=0)
         kw = {}
         if adaptive_fn is not None:
-            temp_K, seed = adaptive_fn(mask)
+            with _ADAPTIVE:
+                temp_K, seed = adaptive_fn(mask)
             kw = dict(K_mask=np.asarray(temp_K, np.float32),
                       carve_center=np.asarray(seed, np.float32))
         rgb, alpha = model(mask, img, p_3d, angle, view_idx, **kw)

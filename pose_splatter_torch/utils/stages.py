@@ -4,11 +4,14 @@ its own blocking reads of the device, and the synchronising recording.
 **Units and spans.** A unit is one train step (``step``,
 ``make_train_step``'s ``train_step``), one forward outside a step
 (``frame``, ``PoseSplatter.forward``), one K-step call (``multi_step``,
-``MultiStep``) or one frame of the visual-pose features (``features``,
+``MultiStep``), one frame of the visual-pose features (``features``,
 ``preprocess/visual_features.py``: the stages of a forward, then
-``resnet`` and ``sh``). Inside a unit each stage is a span with its own start and
-end, a parent and the unit's id: ``frame`` (a forward inside a step) with
-``carve``, ``unets``, ``select_head``, ``binning`` (with the projection
+``resnet`` and ``sh``) or one call of the adaptive camera's host hook
+made in the forward's own thread (``adaptive``: ``train/evaluate.py``,
+``viz/plots.py``; the loader's threads open no span). Inside a unit each
+stage is a span with its own start and end, a parent and the unit's id:
+``frame`` (a forward inside a step) with ``carve``, ``unets``,
+``select_head``, ``binning`` (with the projection
 and depth sort in 3D), ``kernel`` and ``untile``; then ``loss``,
 ``loss_bwd`` (autograd down to the compositor's backward), ``kernel_bwd``,
 ``backward`` (autograd below the renderer) and ``optimizer``; and ``sync``
@@ -44,7 +47,9 @@ tracing); the binning's rows kept and dropped, and its Gaussians binned
 and those whose tile span it clamped, a record a call (:func:`binned`;
 device tensors until the record is read); the
 selection's voxels above its final threshold and Gaussians kept, a record
-a call (:func:`selected`; device tensors until read); the largest
+a call (:func:`selected`; device tensors until read); an adaptive
+forward's shift of the principal points and of the carve's centre, a
+record a call (:func:`adaptive`; device tensors until read); the largest
 ``allocated_bytes`` of the CUDA caching allocator seen at the unit's span
 boundaries (a host statistic: no synchronise, and the allocator's peak
 statistics are never reset); and the compositors' launches, the
@@ -181,7 +186,8 @@ class _Span:
 
 class _Unit:
     __slots__ = ("id", "stretch", "synced", "spans", "open", "events",
-                 "syncs", "launches", "binning", "selection", "allocated")
+                 "syncs", "launches", "binning", "selection", "adaptive",
+                 "allocated")
 
     def __init__(self, stretch: Optional[_Stretch], synced: bool):
         self.id = next(_ids)
@@ -193,6 +199,7 @@ class _Unit:
         self.launches = {k: f.launches for k, f in _launch_counters.items()}
         self.binning: list = []
         self.selection: list = []
+        self.adaptive: list = []
         self.allocated: Optional[int] = None
 
 
@@ -386,6 +393,20 @@ def selected(values: torch.Tensor, threshold: torch.Tensor,
                 [(values > threshold).sum(), valid.sum()]))
 
 
+def adaptive(K_mask: torch.Tensor, Ks: torch.Tensor, center: torch.Tensor,
+             p_3d: torch.Tensor, voxel_size: float):
+    """An adaptive forward's record: the largest |Δcx|, |Δcy| of the
+    frame's intrinsics ``K_mask`` [C',3,3] against the rig's ``Ks`` over
+    the views, in pixels, and the carve centre's distance from the pose's
+    ``p_3d``, in voxels; counted on the device only inside an open unit and
+    outside a CUDA graph capture."""
+    if _unit is not None and not _capturing():
+        with torch.no_grad():
+            _unit.adaptive.append(torch.stack([
+                (K_mask[:, :2, 2] - Ks[:, :2, 2]).abs().amax(),
+                torch.linalg.vector_norm(center - p_3d) / voxel_size]))
+
+
 def count_launches(name: str, fn: Callable):
     """Report the change of ``fn.launches`` across each unit as
     ``launches[name]``."""
@@ -438,6 +459,7 @@ class StageTrace:
         clamped = [int((b[2] > b[3]).sum()) for b in u.binning if b[2] is not None]
         gaussians = [int((b[2] > 0).sum()) for b in u.binning if b[2] is not None]
         sel = [[int(x) for x in s.tolist()] for s in u.selection]
+        ada = [s.tolist() for s in u.adaptive]
         return dict(id=u.id, name=u.spans[0].name, spans=spans,
                     host_syncs=u.syncs,
                     sync_wait_ms=sum(s["host_ms"] for s in spans
@@ -449,6 +471,9 @@ class StageTrace:
                     selection_calls=len(sel),
                     above_threshold=sum(a for a, _ in sel) if sel else None,
                     gaussians_live=sum(n for _, n in sel) if sel else None,
+                    adaptive_calls=len(ada),
+                    adaptive_shift_px=max(a for a, _ in ada) if ada else None,
+                    seed_offset_vox=max(d for _, d in ada) if ada else None,
                     max_allocated_bytes=u.allocated)
 
     def stage_ms(self, name: str) -> Optional[float]:

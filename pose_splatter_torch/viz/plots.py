@@ -21,9 +21,12 @@ import numpy as np
 import torch
 
 from pose_splatter_torch.ops.rasterize import rasterize
+from pose_splatter_torch.utils import stages
 from pose_splatter_torch.utils.device import resolve_device
 
 LOSS_NAMES = ("iou", "ssim", "img")
+# The adaptive camera's host hook, a unit of its own while tracing.
+_ADAPTIVE = stages.Scope("adaptive")
 LOSS_COLORS = ["goldenrod", "deepskyblue", "lightcoral", "darkorchid",
                "mediumseagreen"]
 
@@ -55,7 +58,8 @@ def plot_predictions(model, dataset, save_path: str = "temp.pdf",
         obs_pos = list(dataset.observed_views).index(view)
         kw = {}
         if adaptive_fn is not None:
-            temp_K, seed_3d = adaptive_fn(mask)
+            with _ADAPTIVE:
+                temp_K, seed_3d = adaptive_fn(mask)
             kw = dict(K_mask=np.asarray(temp_K, np.float32),
                       carve_center=np.asarray(seed_3d, np.float32))
         rgb, _ = model(mask, img, p_3d, angle, view, **kw)

@@ -213,9 +213,14 @@ def test_entry_points_launch_each_kernel_once_a_unit(dev, tmp_path, preset):
     units = stages.last_trace().units
     steps = [u for u in units if u["name"] == "step"]
     served = [u for u in units if u["name"] == "frame"]
+    # The renders' host hook is a unit of its own; the loader's is not.
+    hooks = [u for u in units if u["name"] == "adaptive"]
     assert state.step == len(steps) == STEPS
     assert len(served) == VALID_FRAMES + RENDER_FRAMES
-    assert len(steps) + len(served) == len(units)
+    assert len(hooks) == (RENDER_FRAMES if config.adaptive_camera else 0)
+    assert len(steps) + len(served) + len(hooks) == len(units)
+    assert all(u["adaptive_calls"] == int(config.adaptive_camera)
+               for u in steps + served)
     kernel = int(model.render_mode != "tiled")
     wgrad = routed_convs(config)
     assert wgrad == (0 if preset == "pigeon_4" else 4)
