@@ -30,6 +30,13 @@ pixels' minima with 64-bit ``atomicMin``; on the CPU
 ``scatter_reduce("amin")``. A minimum does not depend on the order it is
 taken in, so both give the JAX sort's booleans bit for bit.
 
+The exact carve's colours and volume for both thresholds are
+:func:`carve_colors_pair`: on the card one hand-written kernel
+(``csrc/carve_colors.cu``) reads each voxel's sampled colours once and
+writes its [4] volume, in place of an einsum a threshold (a batched gemv
+of one 1×C by C×3 product a voxel) and a dozen elementwise passes; on the
+CPU :func:`carve_colors_ref`, the JAX carve's arithmetic.
+
 With ``visibility_cap`` the visibility pair runs on a static-shape
 compaction of the occupied set (:func:`compact_occupied`). Nothing there
 reads a device value back to the host, so a CUDA graph can capture it, and
@@ -350,6 +357,146 @@ def compact_occupied(occ: torch.Tensor, cap: int
     return comp, torch.clamp(count[-1] - cap, min=0)
 
 
+def _weights_of(visible: torch.Tensor, nonvisible_weight: float) -> torch.Tensor:
+    """[C, N] weights: 1 where visible, ``nonvisible_weight`` elsewhere,
+    over their sum across the cameras (at least 1e-8)."""
+    weights = torch.where(visible, 1.0, nonvisible_weight)
+    return weights / torch.clamp(weights.sum(dim=0, keepdim=True), min=1e-8)
+
+
+def _volume(occupied: torch.Tensor, colors: torch.Tensor,
+            volume_fill_color: float) -> torch.Tensor:
+    """[4, N]: the occupancy as float, then the [N, 3] colours where
+    occupied and ``volume_fill_color`` elsewhere."""
+    vol_rgb = torch.where(occupied[:, None], colors,
+                          torch.full_like(colors, volume_fill_color))
+    return torch.cat([occupied.float()[None, :], vol_rgb.T], dim=0)
+
+
+def carve_colors_ref(
+    sampled: torch.Tensor,  # [C, N, 3] float32 nearest-pixel colours
+    vis1: torch.Tensor,     # [C, N] bool (first threshold's visibility)
+    vis2: torch.Tensor,     # [C, N] bool (second threshold's visibility)
+    occ1: torch.Tensor,     # [N] bool (first threshold's occupied set)
+    occ2: torch.Tensor,     # [N] bool (second threshold's occupied set)
+    nonvisible_weight: float,
+    volume_fill_color: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/carve_colors.cu``: each threshold's
+    visibility-weighted colours (an einsum over the cameras) and volume,
+    the two volumes averaged into [4, N] (``carving.py:317-326``)."""
+    out = torch.zeros((4, sampled.shape[1]), dtype=torch.float32,
+                      device=sampled.device)
+    for occupied, visible in ((occ1, vis1), (occ2, vis2)):
+        colors = torch.einsum("cn,cnk->nk",
+                              _weights_of(visible, nonvisible_weight), sampled)
+        out = out + _volume(occupied, colors, volume_fill_color) / 2.0
+    return out
+
+
+MAX_COLOR_CAMERAS = 64  # the kernel keeps a voxel's visibility in 64 bits
+
+
+def _check_colors(sampled, vis1, vis2, occ1, occ2):
+    """Device, dtype, shape and stride checks of the colour stage's inputs
+    (nothing is read from the device); returns (C, N)."""
+    if sampled.dim() != 3 or sampled.shape[2] != 3:
+        raise ValueError(f"sampled has shape {tuple(sampled.shape)}, "
+                         "expected [C, N, 3]")
+    C, N, _ = sampled.shape
+    if sampled.dtype != torch.float32:
+        raise TypeError(f"sampled has dtype {sampled.dtype}, expected "
+                        "torch.float32")
+    if sampled.stride(2) != 1:
+        raise ValueError("sampled's colour channels must be adjacent "
+                         f"(strides {sampled.stride()})")
+    if C > MAX_COLOR_CAMERAS:
+        raise ValueError(f"{C} cameras: the kernel takes at most "
+                         f"{MAX_COLOR_CAMERAS}")
+    for name, x, shape in (("vis1", vis1, (C, N)), ("vis2", vis2, (C, N)),
+                           ("occ1", occ1, (N,)), ("occ2", occ2, (N,))):
+        if x.device != sampled.device:
+            raise ValueError(f"{name} is on {x.device}, sampled on "
+                             f"{sampled.device}")
+        if x.dtype != torch.bool:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected torch.bool")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if sampled.requires_grad:
+        raise ValueError("sampled requires grad: the carve is forward only")
+    return C, N
+
+
+def _colors_entry():
+    """``csrc/carve_colors.cu``'s C entry, built (if needed), loaded and
+    bound at first launch."""
+    from pose_splatter_torch.ops import _build
+
+    fn = _build.load("carve_colors").carve_colors
+    if fn.argtypes is None:
+        p, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = [p, i64, i64, p, p, p, p, f32, f32, p, i64, i64, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def carve_colors_pair(
+    sampled: torch.Tensor,  # [C, N, 3] float32, channels adjacent
+    vis1: torch.Tensor,     # [C, N] bool (first threshold's visibility)
+    vis2: torch.Tensor,     # [C, N] bool (second threshold's visibility)
+    occ1: torch.Tensor,     # [N] bool (first threshold's occupied set)
+    occ2: torch.Tensor,     # [N] bool (second threshold's occupied set)
+    nonvisible_weight: float,
+    volume_fill_color: float,
+) -> torch.Tensor:
+    """The exact carve's volume [4, N] from its sampled colours and both
+    thresholds' visibility and occupancy: for each threshold the colours
+    weighted 1 where visible and ``nonvisible_weight`` elsewhere over the
+    weights' sum, channel 0 the occupancy and channels 1–3 the colours
+    where occupied and ``volume_fill_color`` elsewhere; the two volumes
+    averaged.
+
+    ``sampled`` may be the stride-4 view of the fused [C, N, 4] gather (the
+    kernel then reads each colour as one 16-byte load) or any tensor whose
+    channels are adjacent. CPU tensors run :func:`carve_colors_ref`; CUDA
+    tensors launch ``csrc/carve_colors.cu`` on the current stream (one
+    kernel into an output allocated here; nothing is read back, so a CUDA
+    graph can capture the call) and count it in
+    ``carve_colors_pair.launches``. On the card the kernel sums over the
+    cameras in the order of the batched gemv that the plain version's
+    einsum runs there, so the two give the same volume bit for bit (but
+    in cuBLAS's short last chunk of voxels, within an ulp or two). The
+    carve is forward only: an input that requires grad is refused.
+    """
+    C, N = _check_colors(sampled, vis1, vis2, occ1, occ2)
+    if sampled.device.type == "cpu":
+        return carve_colors_ref(sampled, vis1, vis2, occ1, occ2,
+                                nonvisible_weight, volume_fill_color)
+    if sampled.device.type != "cuda":
+        raise ValueError(f"unsupported device {sampled.device}")
+    dev = sampled.device
+    out = torch.empty((4, N), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out  # nothing to launch, nothing counted
+    fn = _colors_entry()
+    with torch.cuda.device(dev):
+        err = fn(sampled.data_ptr(), sampled.stride(0), sampled.stride(1),
+                 vis1.data_ptr(), vis2.data_ptr(), occ1.data_ptr(),
+                 occ2.data_ptr(), nonvisible_weight, volume_fill_color,
+                 out.data_ptr(), C, N,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"carve_colors launch failed: CUDA error {err}")
+    carve_colors_pair.launches += 1
+    return out
+
+
+carve_colors_pair.launches = 0
+stages.count_launches("carve_colors", carve_colors_pair)
+
+
 def carve_volume(
     mask: torch.Tensor,
     rgb: torch.Tensor,
@@ -415,25 +562,15 @@ def carve_volume(
     occ2 = mask_flat >= (C - 1.0) / C
     overflow = torch.zeros((), dtype=torch.long, device=mask.device)
 
-    def volume(occupied, colors):
-        vol_rgb = torch.where(occupied[:, None], colors,
-                              torch.full_like(colors, volume_fill_color))
-        return torch.cat([occupied.float()[None, :], vol_rgb.T], dim=0)
-
-    def weights_of(visible):
-        weights = torch.where(visible, 1.0, nonvisible_weight)
-        return weights / torch.clamp(weights.sum(dim=0, keepdim=True), min=1e-8)
-
-    out = torch.zeros((4, N), dtype=torch.float32, device=mask.device)
     if visibility_cap is None or visibility_cap >= N:
         dists = torch.linalg.norm(pts[None] - cam_pos[:, None, :], dim=-1)
         _, _, flat = _pixel_indices(pix, imgH, imgW)
         vis1, vis2 = ray_cast_visibility_pair(dists, flat, occ1, occ2,
                                               imgH * imgW)
-        for occupied, visible in ((occ1, vis1), (occ2, vis2)):
-            colors = torch.einsum("cn,cnk->nk", weights_of(visible), sampled)
-            out = out + volume(occupied, colors) / 2.0
+        out = carve_colors_pair(sampled, vis1, vis2, occ1, occ2,
+                                nonvisible_weight, volume_fill_color)
     else:
+        out = torch.zeros((4, N), dtype=torch.float32, device=mask.device)
         M = visibility_cap
         comp, overflow = compact_occupied(occ2, M)
         valid_c = comp < N
@@ -462,11 +599,12 @@ def carve_volume(
         slot = slot.clamp(max=M - 1)
         base_colors = sampled.mean(dim=0)
         for occupied, visible_c in ((occ1, vis1_c), (occ2, vis2_c)):
-            colors_c = torch.einsum("cm,cmk->mk", weights_of(visible_c),
-                                    sampled_c)  # [M,3]
+            colors_c = torch.einsum(
+                "cm,cmk->mk", _weights_of(visible_c, nonvisible_weight),
+                sampled_c)  # [M,3]
             colors = torch.where(in_cap, colors_c.index_select(0, slot),
                                  base_colors)
-            out = out + volume(occupied, colors) / 2.0
+            out = out + _volume(occupied, colors, volume_fill_color) / 2.0
     vol = out.reshape(4, n1, n2, n3)
     if return_overflow:
         return vol, overflow

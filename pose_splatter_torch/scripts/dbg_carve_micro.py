@@ -44,7 +44,14 @@ three carve shapes (``VIS_SHAPES``) on a ring of 5 cameras, with the
 benchmark scene's ellipsoid and with random sets, against its plain
 version bit for bit, its ms a call beside the plain version's, its
 bound from the function's own bytes and, apart, the fill of the kernel's
-scratch table.
+scratch table. It then adds :func:`color_shapes`: the exact carve's
+colour stage (``carving.py::carve_colors_pair``, ``csrc/carve_colors.cu``
+on the card) at the 2D, pigeon_4 and high-res carve shapes
+(``COLOR_SHAPES``), each in the layout its carve hands over, against its
+plain version (``carve_colors_ref``: an einsum a threshold, a batched gemv
+on the card, and its elementwise ops), with the einsums alone beside them
+and the bound from the bytes these inputs need. On the card every time is
+one call's device ms by CUDA-graph replay (``bench.py::graph_device_ms``).
 """
 
 from __future__ import annotations
@@ -56,6 +63,9 @@ import torch
 
 from pose_splatter_torch.ops.carving import (
     _pixel_indices,
+    _weights_of,
+    carve_colors_pair,
+    carve_colors_ref,
     frontmost_visible,
     ray_cast_visibility_pair,
     visibility_pair_ref,
@@ -80,6 +90,15 @@ VIS_SHAPES = (("2d_576x512", 128, CROP, 576, 512),
               ("highres_1152x1024", 256, ((0, 192), (32, 192), (50, 178)),
                1152, 1024))
 VIS_AXES = (0.0385, 0.0224, 0.0196)  # the benchmark scene's ellipsoid
+# The exact carve's colour stage: (name, grid size, crop, image width,
+# height, cameras, sampled's layout) of the 2D preset and the high-res
+# preset (the fused gather's stride-4 view) and of pigeon_4 (the whole 80³
+# cube, 4 cameras, the contiguous [C, N, 3] of the K_mask gather).
+COLOR_SHAPES = (("2d_576x512",) + VIS_SHAPES[0][1:] + (5, "view"),
+                ("pigeon4_656x320", 80, ((0, 80),) * 3, 656, 320, 4,
+                 "contiguous"),
+                ("highres_1152x1024",) + VIS_SHAPES[2][1:] + (5, "view"))
+NONVISIBLE_WEIGHT, FILL = 0.25, 0.45  # carve_volume's defaults
 PEAK_BYTES = 3.35e12  # H100 SXM device memory, bytes/s
 
 
@@ -218,6 +237,112 @@ def visibility_shapes(device="cuda", iters: int = 10, seed: int = 0,
     return rows
 
 
+def color_inputs(dev, grid_size: int, crop, width: int, height: int,
+                 cameras: int = 5, layout: str = "view",
+                 sets: str = "ellipsoid", seed: int = 0):
+    """The colour stage's arguments (sampled, vis1, vis2, occ1, occ2,
+    nonvisible weight, fill) on ``dev``: :func:`visibility_inputs`' sets
+    and their visibility pair, and colours uniform in [0, 1) drawn from
+    ``seed`` as [C, N, 4] and handed over as the stride-4 view of its
+    first three channels (``layout`` "view", the fused gather's) or as a
+    contiguous [C, N, 3] ("contiguous", the ``K_mask`` gather's)."""
+    dev = torch.device(dev)
+    dists, flat, occ1, occ2, P = visibility_inputs(
+        dev, grid_size, crop, width, height, sets, cameras, seed)
+    vis1, vis2 = ray_cast_visibility_pair(dists, flat, occ1, occ2, P)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    samp = torch.rand((cameras, dists.shape[1], 4), generator=gen,
+                      device=dev)[..., :3]
+    if layout == "contiguous":
+        samp = samp.contiguous()
+    elif layout != "view":
+        raise ValueError(f"unknown layout {layout!r}")
+    return samp, vis1, vis2, occ1, occ2, NONVISIBLE_WEIGHT, FILL
+
+
+def color_bound(sampled, occ1, occ2) -> Dict:
+    """The colour stage's least time at the card's memory bandwidth. From
+    the bytes these inputs need (``bytes``, ``bound_ms``): every voxel's
+    two flags and its [4] float32 volume, and for a voxel of a set that
+    set's visibility and, for a voxel of either, its 3 float32 colours,
+    each counted once (an unoccupied voxel's colours and visibility do not
+    reach the volume). Apart, every input read once whatever the sets
+    (``dense_bytes``, ``dense_bound_ms``: ``sampled``'s storage, 16 bytes
+    a colour for the stride-4 view)."""
+    C, n, _ = sampled.shape
+    in1, in2 = int(occ1.sum()), int(occ2.sum())
+    either = int((occ1 | occ2).sum())
+    nbytes = 18 * n + C * (in1 + in2) + 12 * C * either
+    dense = 4 * sampled.stride(1) * C * n + 2 * C * n + 18 * n
+    return dict(occupied=either, bytes=nbytes,
+                bound_ms=1e3 * nbytes / PEAK_BYTES, dense_bytes=dense,
+                dense_bound_ms=1e3 * dense / PEAK_BYTES)
+
+
+def color_ulps(got: torch.Tensor, want: torch.Tensor) -> Dict:
+    """``got`` against ``want`` ([4, N] volumes of non-negative values):
+    whether the occupancy channel is equal, and the largest distance in
+    units in the last place of the colour channels (their float32 bit
+    patterns, which order as the values do)."""
+    a, b = got[1:].contiguous(), want[1:].contiguous()
+    ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return dict(occupancy_equal=bool(torch.equal(got[0], want[0])),
+                max_ulps=int(ulps.max()) if ulps.numel() else 0)
+
+
+def color_shapes(device="cuda", iters: int = 10, seed: int = 0,
+                 shapes=COLOR_SHAPES, device_timer=None) -> list:
+    """The colour stage at each of ``shapes`` with both kinds of sets
+    (:func:`color_inputs`): the occupancy equal to ``carve_colors_ref``'s
+    and the colours' largest distance from it in ulps
+    (:func:`color_ulps`); ms a call of the stage, of its plain version and
+    of the plain version's two einsums alone, each by ``device_timer`` (a
+    function of a call; on the card by default one call's device ms by
+    CUDA-graph replay, on the CPU the host clock); and the bound of
+    :func:`color_bound`. One row a shape and sets."""
+    dev = resolve_device(device)
+    if device_timer is None:
+        if dev.type == "cuda":
+            from pose_splatter_torch.scripts.bench import graph_device_ms
+
+            def device_timer(fn):
+                return graph_device_ms(fn, (), iters)
+        else:
+            def device_timer(fn):
+                return call_ms(fn, dev, iters)
+    rows = []
+    for name, grid_size, crop, width, height, cameras, layout in shapes:
+        for sets in ("ellipsoid", "random"):
+            x = color_inputs(dev, grid_size, crop, width, height, cameras,
+                             layout, sets, seed)
+            samp, vis1, vis2, _, _, nw, _ = x
+            w1, w2 = _weights_of(vis1, nw), _weights_of(vis2, nw)
+
+            def einsums():
+                return (torch.einsum("cn,cnk->nk", w1, samp),
+                        torch.einsum("cn,cnk->nk", w2, samp))
+
+            row = dict(shape=name, sets=sets, layout=layout,
+                       voxels=samp.shape[1], cameras=cameras,
+                       **color_ulps(carve_colors_pair(*x),
+                                    carve_colors_ref(*x)),
+                       ms=device_timer(lambda: carve_colors_pair(*x)),
+                       plain_ms=device_timer(lambda: carve_colors_ref(*x)),
+                       einsum_ms=device_timer(einsums),
+                       **color_bound(samp, x[3], x[4]))
+            print(f"carve colours {name} {sets} ({layout}): {row['voxels']} "
+                  f"voxels x {cameras} cameras, {row['occupied']} occupied; "
+                  f"{row['ms']:.4f} ms a call, plain {row['plain_ms']:.4f} "
+                  f"ms (its einsums {row['einsum_ms']:.4f}); bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bytes'] / 1e6:.1f} MB), "
+                  f"every input once {row['dense_bound_ms']:.4f} ms "
+                  f"({row['dense_bytes'] / 1e6:.1f} MB); occupancy equal "
+                  f"{row['occupancy_equal']}, colours within "
+                  f"{row['max_ulps']} ulp", flush=True)
+            rows.append(row)
+    return rows
+
+
 def run(device="cuda", seed: int = 0, iters: int = 10, N: int = N,
         C: int = C, H: int = H, W: int = W) -> Dict:
     probe = pc.Probe(device, iters, width=38, fmt="9.2f")
@@ -268,13 +393,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--height", type=int, default=H)
     ap.add_argument("--width", type=int, default=W)
     ap.add_argument("--shapes", action="store_true",
-                    help="also item 8 at the main path's carve shapes "
-                         "against its plain version (visibility_shapes)")
+                    help="also item 8 and the colour stage at the main "
+                         "path's carve shapes against their plain versions "
+                         "(visibility_shapes, color_shapes)")
     a = ap.parse_args(argv)
     out = run(a.device, a.seed, a.iters, a.voxels, a.cameras, a.height,
               a.width)
     if a.shapes:
         out["shapes"] = visibility_shapes(a.device, a.iters, a.seed)
+        out["color_shapes"] = color_shapes(a.device, a.iters, a.seed)
     return out
 
 

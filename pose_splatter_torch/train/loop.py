@@ -207,7 +207,8 @@ class MultiStep:
     microseconds against a step of tens of ms. A capture that fails raises:
     there is no eager fallback. Launch counters count a kernel once at
     capture, so ``graph_launches`` keeps the compositor and carve
-    visibility launches one replay makes and ``replays`` the replays made.
+    (visibility, colours) launches one replay makes and ``replays`` the
+    replays made.
 
     On the CPU the K steps run as a plain loop.
     """
@@ -246,7 +247,8 @@ class MultiStep:
 
         kernels = dict(composite_fwd=RK.composite_instances,
                        composite_bwd=RK.composite_instances_bwd,
-                       carve_visibility=carving.ray_cast_visibility_pair)
+                       carve_visibility=carving.ray_cast_visibility_pair,
+                       carve_colors=carving.carve_colors_pair)
         before = {k: f.launches for k, f in kernels.items()}
         torch.cuda.synchronize(self.model.device)
         # Gradients None before the capture: the captured backward then

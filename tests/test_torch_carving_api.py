@@ -1,6 +1,8 @@
 """The port's public carving API against the JAX package on the CPU:
 ``ray_cast_visibility`` (both methods, exactly), ``compute_voxel_colors``,
-``shape_carve_volume`` and ``shape_carve_mask`` (within 1e-6),
+the exact carve's colour stage (``carve_colors_ref``: the former inline
+code bit for bit, and its checks), ``shape_carve_volume`` and
+``shape_carve_mask`` (within 1e-6),
 ``w2c_to_c2w`` (bit for bit) and ``require_cv2``. Mirrors
 ``tests/test_carving.py:66-105``."""
 
@@ -237,6 +239,112 @@ def test_compute_voxel_colors_weighting():
     colors = tc.compute_voxel_colors(torch.zeros((1, 3)),
                                      torch.tensor([True]), imgs, K, E)
     assert torch.allclose(colors[0], torch.tensor(0.5), atol=1e-5)
+
+
+def _inline_carve_colors(sampled, vis1, vis2, occ1, occ2, nonvisible_weight,
+                         volume_fill_color):
+    """The exact carve's colour stage as ``carve_volume`` wrote it inline
+    before it became ``carve_colors_ref``, line for line."""
+    N = sampled.shape[1]
+
+    def volume(occupied, colors):
+        vol_rgb = torch.where(occupied[:, None], colors,
+                              torch.full_like(colors, volume_fill_color))
+        return torch.cat([occupied.float()[None, :], vol_rgb.T], dim=0)
+
+    def weights_of(visible):
+        weights = torch.where(visible, 1.0, nonvisible_weight)
+        return weights / torch.clamp(weights.sum(dim=0, keepdim=True), min=1e-8)
+
+    out = torch.zeros((4, N), dtype=torch.float32, device=sampled.device)
+    for occupied, visible in ((occ1, vis1), (occ2, vis2)):
+        colors = torch.einsum("cn,cnk->nk", weights_of(visible), sampled)
+        out = out + volume(occupied, colors) / 2.0
+    return out
+
+
+def _color_stage(C, N, seed, layout):
+    """Random colours ([C, N, 4] cut to 3 channels as the fused gather's
+    view, or a contiguous [C, N, 3]), visibility and occupancy sets that
+    are not nested, a voxel seen by no camera and an all-empty camera."""
+    g = torch.Generator().manual_seed(seed)
+    samp = torch.rand((C, N, 4), generator=g)[..., :3]
+    if layout == "contiguous":
+        samp = samp.contiguous()
+    occ1 = torch.rand(N, generator=g) < 0.4
+    occ2 = torch.rand(N, generator=g) < 0.7
+    vis1 = (torch.rand((C, N), generator=g) < 0.5) & occ1
+    vis2 = (torch.rand((C, N), generator=g) < 0.5) & occ2
+    vis1[:, 0] = vis2[:, 0] = False
+    occ1[0] = occ2[0] = True
+    vis1[-1] = vis2[-1] = False
+    return samp, vis1, vis2, occ1, occ2
+
+
+@pytest.mark.parametrize("layout", ["view", "contiguous"])
+@pytest.mark.parametrize("nonvisible_weight,fill", [(0.25, 0.45), (0.1, 0.3)])
+def test_carve_colors_ref_is_the_inline_code_and_the_jax_carve(
+        layout, nonvisible_weight, fill):
+    """``carve_colors_ref`` and the CPU's ``carve_colors_pair`` (which
+    launches nothing) equal the carve's former inline code bit for bit;
+    against the JAX carve's colour stage (``carving.py:317-326``) the
+    occupancy is exact and the colours within 1e-6."""
+    x = _color_stage(5, 3000, 7, layout)
+    launched = tc.carve_colors_pair.launches
+    inline = _inline_carve_colors(*x, nonvisible_weight, fill)
+    assert torch.equal(tc.carve_colors_ref(*x, nonvisible_weight, fill), inline)
+    assert torch.equal(tc.carve_colors_pair(*x, nonvisible_weight, fill), inline)
+    assert tc.carve_colors_pair.launches == launched  # no kernel here
+    sampled, vis1, vis2, occ1, occ2 = (jnp.asarray(a.numpy()) for a in x)
+    out = jnp.zeros((4, sampled.shape[1]), dtype=jnp.float32)
+    for occupied, visible in ((occ1, vis1), (occ2, vis2)):
+        weights = jnp.where(visible, 1.0, nonvisible_weight)
+        weights = weights / jnp.clip(weights.sum(axis=0, keepdims=True), 1e-8)
+        colors = jnp.einsum("cn,cnk->nk", weights, sampled)
+        vol_rgb = jnp.where(occupied[:, None], colors, fill)
+        out = out + jnp.concatenate(
+            [occupied.astype(jnp.float32)[None, :], vol_rgb.T], axis=0) / 2.0
+    out = np.asarray(out)
+    np.testing.assert_array_equal(inline[0].numpy(), out[0])
+    np.testing.assert_allclose(inline.numpy(), out, rtol=0, atol=1e-6)
+
+
+def _bad_colors(case):
+    s = torch.rand((2, 8, 3))
+    v = torch.ones((2, 8), dtype=torch.bool)
+    o = torch.ones(8, dtype=torch.bool)
+    many = torch.ones((65, 8), dtype=torch.bool)
+    return {"sampled_dtype": (s.double(), v, v, o, o),
+            "sampled_shape": (s[..., :2], v, v, o, o),
+            "channels_apart": (s.transpose(0, 2).contiguous().transpose(0, 2),
+                               v, v, o, o),
+            "vis_dtype": (s, v.float(), v, o, o),
+            "occ_shape": (s, v, v, o[:7], o),
+            "vis_not_contiguous": (s, v, torch.ones((8, 2), dtype=torch.bool).T,
+                                   o, o),
+            "device": (s, v, v, o, o.to("meta")),
+            "too_many_cameras": (torch.rand((65, 8, 3)), many, many, o, o),
+            "requires_grad": (s.requires_grad_(), v, v, o, o)}[case]
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("sampled_dtype", TypeError, "sampled has dtype"),
+    ("sampled_shape", ValueError, "expected \\[C, N, 3\\]"),
+    ("channels_apart", ValueError, "channels must be adjacent"),
+    ("vis_dtype", TypeError, "vis1 has dtype"),
+    ("occ_shape", ValueError, "occ1 has shape"),
+    ("vis_not_contiguous", ValueError, "vis2 must be contiguous"),
+    ("device", ValueError, "occ2 is on meta"),
+    ("too_many_cameras", ValueError, "at most 64"),
+    ("requires_grad", ValueError, "forward only"),
+])
+def test_carve_colors_checks_its_inputs(case, error, match):
+    """The colour stage's checks, the same on every device, read shapes
+    only; nothing is launched."""
+    launched = tc.carve_colors_pair.launches
+    with pytest.raises(error, match=match):
+        tc.carve_colors_pair(*_bad_colors(case), 0.25, 0.45)
+    assert tc.carve_colors_pair.launches == launched
 
 
 @pytest.mark.parametrize("C,eps", [(6, 1e-2), (4, 0.05)])

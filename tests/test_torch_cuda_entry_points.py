@@ -4,9 +4,10 @@
 templates, at ``configs/baseline/pigeon_4.json`` (adaptive camera, 3D) and
 at the 2D template in ``"tiled"`` mode, each cut to a small render and
 grid, with the kernels' launches read a unit from ``stages.trace``: one
-forward, one backward and one visibility launch a train step, one forward
-and one visibility launch a frame (the validation's ``make_eval_step`` and
-the renders), no compositor launch in tiled mode, a weight-gradient
+forward, one backward, one visibility and one carve-colour launch a train
+step, one forward, one visibility and one carve-colour launch a frame (the
+validation's ``make_eval_step`` and the renders), no compositor launch in
+tiled mode, a weight-gradient
 launch for each conv the route sends to the kernel a train step, none a
 frame, and one replay of the U-Net stack's CUDA graph a frame after its
 warm-up frames, none a step; then both compositors
@@ -228,6 +229,7 @@ def test_entry_points_launch_each_kernel_once_a_unit(dev, tmp_path, preset):
         assert u["launches"] == dict(composite_fwd=kernel,
                                      composite_bwd=kernel,
                                      carve_visibility=1,
+                                     carve_colors=1,
                                      conv3d_wgrad=wgrad,
                                      unets_graph=0), u["launches"]
     # The served frames' U-Net stack: eager for its warm-up frames, then
@@ -235,7 +237,8 @@ def test_entry_points_launch_each_kernel_once_a_unit(dev, tmp_path, preset):
     for i, u in enumerate(served):
         assert u["launches"] == dict(
             composite_fwd=kernel, composite_bwd=0, carve_visibility=1,
-            conv3d_wgrad=0, unets_graph=int(i >= UNET_GRAPH_WARMUP)
+            carve_colors=1, conv3d_wgrad=0,
+            unets_graph=int(i >= UNET_GRAPH_WARMUP)
         ), (i, u["launches"])
     assert model.net.unet_graph_captures == 1
     assert model.net.unet_graph_replays == len(served) - UNET_GRAPH_WARMUP

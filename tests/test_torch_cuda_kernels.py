@@ -17,7 +17,9 @@ against the CPU's and its CUDA-graph capture in kernel and tiled mode,
 and the O(P) ``composite_pixels`` against autograd through its scan.
 The carve's visibility kernel against its plain version at the main
 path's three carve shapes, under CUDA-graph capture, inside
-``carve_volume`` and its wrapper's checks. The carve's visibility cap on
+``carve_volume`` and its wrapper's checks; the same of the carve's colour
+kernel at the 2D, pigeon_4 and high-res shapes in both of ``sampled``'s
+layouts, bit for bit, with empty, full and unseen sets. The carve's visibility cap on
 the card against the CPU, a remat train
 step against one without remat, and a captured step with the cap and
 remat against its eager twin. The final U-Net's backward at the presets'
@@ -714,7 +716,7 @@ def test_captured_step_matches_the_eager_step(dev, deterministic_cudnn, mode):
         eager_losses.append(float(m["total"]))
     assert ms.replays == 5 and sa.step == sb.step == 8
     assert ms.graph_launches == {"composite_fwd": 1, "composite_bwd": 1,
-                                 "carve_visibility": 1}
+                                 "carve_visibility": 1, "carve_colors": 1}
     assert graph_losses == eager_losses, (graph_losses, eager_losses)
     for (k, x), y in zip(a.net.state_dict().items(),
                          b.net.state_dict().values()):
@@ -1074,7 +1076,8 @@ def test_captured_cap_remat_step_matches_the_eager_step(dev, deterministic_cudnn
     assert int(overflow) > 0  # the captured carve overflows its cap
     assert ms.replays == 5 and ms.graph_launches == {"composite_fwd": 1,
                                                      "composite_bwd": 1,
-                                                     "carve_visibility": 1}
+                                                     "carve_visibility": 1,
+                                                     "carve_colors": 0}
     assert graph_losses == eager_losses, (graph_losses, eager_losses)
     for (k, x), y in zip(a.net.state_dict().items(),
                          b.net.state_dict().values()):
@@ -1525,9 +1528,12 @@ def test_carve_volume_through_the_kernel(dev, monkeypatch, cap):
     """``carve_volume`` on the card launches the kernel once a carve (the
     CPU none), its visibility equals the plain version's on the carve's
     own arguments, and its volume equals, bit for bit, the card's volume
-    with the plain version in the kernel's place; against the CPU's volume
-    the occupancy is exact and the colours within 1e-6 (the colour einsum
-    and the distances round in another order on each device)."""
+    with the plain version in the kernel's place, and with the colour
+    stage's plain version in its kernel's place too; against the CPU's volume
+    the occupancy is exact and the colours within 1e-6 (the colour sum
+    and the distances round in another order on each device). The exact
+    carve also launches the colour kernel once (the CPU none), the capped
+    one never: it keeps its einsum over the compacted voxels."""
     from pose_splatter_torch.ops import carving as tc
 
     calls = []
@@ -1547,16 +1553,19 @@ def test_carve_volume_through_the_kernel(dev, monkeypatch, cap):
         t = [None if a is None else torch.as_tensor(
             np.asarray(a, np.float32), device=d) for a in args]
         M = None if cap is None else 200
-        before = recorded.launches
+        before = recorded.launches, tc.carve_colors_pair.launches
         vols.append(tc.carve_volume(*t, visibility_cap=M).cpu())
-        counted.append(recorded.launches - before)
-    assert counted == [0, 1]
+        counted.append((recorded.launches - before[0],
+                        tc.carve_colors_pair.launches - before[1]))
+    assert counted == [(0, 0), (1, int(cap is None))]
     (a, out) = calls[-1]
     assert out[0].is_cuda and _pair_equal(out, tc.visibility_pair_ref(*a))
     monkeypatch.setattr(tc, "ray_cast_visibility_pair",
                         lambda *a: tc.visibility_pair_ref(*a[:4], a[4]))
     plain = tc.carve_volume(*t, visibility_cap=M).cpu()
     assert torch.equal(vols[1], plain)
+    monkeypatch.setattr(tc, "carve_colors_pair", tc.carve_colors_ref)
+    assert torch.equal(tc.carve_volume(*t, visibility_cap=M).cpu(), plain)
     assert torch.equal(vols[0][0], vols[1][0])
     assert float((vols[0] - vols[1]).abs().max()) <= 1e-6
 
@@ -1610,3 +1619,162 @@ def test_carve_visibility_wrapper_rejects_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match="is on cpu"):
         tc.ray_cast_visibility_pair(d, f.cpu(), o, o, 16)
     assert tc.ray_cast_visibility_pair.launches == before
+
+
+# ---- the carve's colour stage (csrc/carve_colors.cu) --------------------
+
+# The kernel takes each voxel's weights, their sums, the occupancy, the
+# fill and the halving as the plain version does, and sums the weighted
+# colours over the cameras in the order of the batched gemv that the plain
+# version's einsum runs on the card (each half of the cameras a chain of
+# fused multiply-adds, then the halves added): the volumes are equal bit
+# for bit. cuBLAS runs the N gemvs in chunks of 65,535; a short last chunk
+# (the last 60 voxels at high res) goes to another of its kernels, which
+# sums in another order, so there the colours are held within 2 ulp.
+GEMV_CHUNK = 65535
+TAIL_ULPS = 2
+
+
+def _color_inputs(dev, shape, layout, sets):
+    from pose_splatter_torch.scripts import dbg_carve_micro as cm
+
+    row = {s[0]: s for s in cm.COLOR_SHAPES}[shape]
+    return cm.color_inputs(dev, *row[1:6], layout=layout, sets=sets)
+
+
+def _assert_colors_equal(got, want):
+    from pose_splatter_torch.scripts import dbg_carve_micro as cm
+
+    full = got.shape[1] // GEMV_CHUNK * GEMV_CHUNK or got.shape[1]
+    assert torch.equal(got[:, :full], want[:, :full])
+    r = cm.color_ulps(got, want)
+    assert r["occupancy_equal"] and r["max_ulps"] <= TAIL_ULPS, r
+
+
+@pytest.mark.parametrize("layout", ["view", "contiguous"])
+@pytest.mark.parametrize("shape", ["2d_576x512", "pigeon4_656x320",
+                                   "highres_1152x1024"])
+def test_carve_colors_kernel_matches_plain(dev, shape, layout):
+    """The kernel at the 2D, pigeon_4 (4 cameras, 512,000 voxels) and
+    high-res (3,932,160 voxels) carve shapes, ``sampled`` as the fused
+    gather's stride-4 view and as a contiguous [C, N, 3], on the benchmark
+    scene's ellipsoid and on random sets that are not nested, against its
+    plain version on the card: one launch a call, the volume equal bit
+    for bit (but cuBLAS's short last chunk, within ``TAIL_ULPS``), and
+    the same volume on a rerun."""
+    from pose_splatter_torch.ops import carving as tc
+
+    for sets in ("ellipsoid", "random"):
+        x = _color_inputs(dev, shape, layout, sets)
+        assert x[0].is_contiguous() == (layout == "contiguous")
+        before = tc.carve_colors_pair.launches
+        got = tc.carve_colors_pair(*x)
+        torch.cuda.synchronize()
+        assert tc.carve_colors_pair.launches == before + 1
+        assert got.shape == (4, x[0].shape[1]) and bool((got[0] > 0).any())
+        _assert_colors_equal(got, tc.carve_colors_ref(*x))
+        assert torch.equal(got, tc.carve_colors_pair(*x))
+
+
+@pytest.mark.parametrize("layout", ["view", "contiguous"])
+@pytest.mark.parametrize("case", ["first_empty_second_full",
+                                  "first_full_second_empty", "unseen"])
+def test_carve_colors_kernel_on_the_edges(dev, case, layout):
+    """Sets random draws miss, at the 2D shape: an empty set beside a
+    full one (each way round), and occupied voxels seen by no camera
+    (every weight ``nonvisible_weight``: the plain average), against the
+    plain version on the card; an empty set's voxels read the fill."""
+    from pose_splatter_torch.ops import carving as tc
+
+    samp, vis1, vis2, occ1, occ2, nw, fill = _color_inputs(
+        dev, "2d_576x512", layout, "random")
+    C, N = vis1.shape
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bits = torch.rand((C, N), generator=gen, device=dev) < 0.5
+    none = torch.zeros(N, dtype=torch.bool, device=dev)
+    if case == "first_empty_second_full":
+        occ1, vis1, occ2, vis2 = none, bits & False, ~none, bits
+    elif case == "first_full_second_empty":
+        occ1, vis1, occ2, vis2 = ~none, bits, none, bits & False
+    else:
+        vis1, vis2 = vis1.clone(), vis2.clone()
+        vis1[:, ::3] = False
+        vis2[:, ::3] = False
+        assert bool(occ2[::3].any())
+    x = (samp, vis1, vis2, occ1, occ2, nw, fill)
+    got = tc.carve_colors_pair(*x)
+    _assert_colors_equal(got, tc.carve_colors_ref(*x))
+    if case == "unseen":
+        # An occupied voxel seen by no camera takes the plain average.
+        n = int(torch.nonzero(occ1[::3] & occ2[::3])[0]) * 3
+        assert torch.allclose(got[1:, n], samp[:, n].mean(0), rtol=1e-6)
+    else:
+        # One set holds every voxel, the other none: the empty set's half
+        # of every colour is the fill's.
+        assert torch.equal(got[0], torch.full_like(got[0], 0.5))
+        seen = vis2 if case == "first_empty_second_full" else vis1
+        w = torch.where(seen, 1.0, nw).double()
+        want = torch.einsum("cn,cnk->nk", w / w.sum(0), samp.double()).T
+        assert torch.allclose(got[1:].double(), want / 2 + fill / 2,
+                              rtol=1e-6, atol=0)
+
+
+def test_carve_colors_kernel_under_graph_capture(dev):
+    """One call captured in a CUDA graph (counted once, at the capture):
+    replays on new inputs copied into the captured ones give the eager
+    call's volume on those inputs, bit for bit."""
+    from pose_splatter_torch.ops import carving as tc
+
+    x = _color_inputs(dev, "2d_576x512", "view", "ellipsoid")
+    y = _color_inputs(dev, "2d_576x512", "view", "random")
+    eager_x, eager_y = tc.carve_colors_pair(*x), tc.carve_colors_pair(*y)
+    fused = torch.empty((x[0].shape[0], x[0].shape[1], 4), device=dev)
+    static = [fused[..., :3]] + [a.clone() for a in y[1:5]]
+    torch.cuda.synchronize()
+    before = tc.carve_colors_pair.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tc.carve_colors_pair(*static, *x[5:])
+    assert tc.carve_colors_pair.launches == before + 1
+    for inputs, want in ((x, eager_x), (y, eager_y)):
+        for s, a in zip(static, inputs[:5]):
+            s.copy_(a)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert tc.carve_colors_pair.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["sampled_dtype", "sampled_shape",
+                                  "channels_apart", "vis_dtype", "occ_shape",
+                                  "vis_not_contiguous", "too_many_cameras",
+                                  "requires_grad"])
+def test_carve_colors_wrapper_rejects_what_the_kernel_does_not_take(
+        dev, case):
+    """The wrapper's checks on CUDA tensors, and a CPU tensor beside a CUDA
+    one; nothing is launched."""
+    from pose_splatter_torch.ops import carving as tc
+
+    s = torch.rand((2, 8, 3), device=dev)
+    v = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    o = torch.ones(8, dtype=torch.bool, device=dev)
+    bad = {"sampled_dtype": (s.double(), v, v, o, o),
+           "sampled_shape": (s[..., :2], v, v, o, o),
+           "channels_apart": (s.transpose(0, 2).contiguous().transpose(0, 2),
+                              v, v, o, o),
+           "vis_dtype": (s, v.float(), v, o, o),
+           "occ_shape": (s, v, v, o[:7], o),
+           "vis_not_contiguous": (s, v, torch.ones((8, 2), dtype=torch.bool,
+                                                   device=dev).T, o, o),
+           "too_many_cameras": (torch.rand((65, 8, 3), device=dev),
+                                torch.ones((65, 8), dtype=torch.bool,
+                                           device=dev),
+                                torch.ones((65, 8), dtype=torch.bool,
+                                           device=dev), o, o),
+           "requires_grad": (s.requires_grad_(), v, v, o, o)}[case]
+    before = tc.carve_colors_pair.launches
+    with pytest.raises((TypeError, ValueError)):
+        tc.carve_colors_pair(*bad, 0.25, 0.45)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tc.carve_colors_pair(s.detach(), v, v.cpu(), o, o, 0.25, 0.45)
+    assert tc.carve_colors_pair.launches == before

@@ -64,7 +64,8 @@ def test_adaptive_train_step_at_published_widths(dev):
     crop = [hi - lo for lo, hi in cfg["volume_idx"]]
     routed = sum(r["routed"] for r in unet_convs(crop, cfg["base_filters"]))
     assert unit["launches"] == dict(composite_fwd=1, composite_bwd=1,
-                                    carve_visibility=1, conv3d_wgrad=routed,
+                                    carve_visibility=1, carve_colors=1,
+                                    conv3d_wgrad=routed,
                                     unets_graph=0), unit["launches"]
     assert unit["binned_rows"] > 0 and unit["dropped_rows"] == 0
     assert 0 < unit["gaussians_live"] <= cfg["max_n"]

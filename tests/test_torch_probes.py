@@ -295,6 +295,29 @@ def test_carve_micro_variants_match_the_scripts_lines():
 TINY_SHAPE = ("tiny", 32, ((0, 16), (4, 20), (6, 22)), 96, 64)
 
 
+def test_carve_micro_color_shapes_on_the_cpu():
+    """``--shapes``' colour rows at small shapes in both layouts: the
+    stage equal to its plain version (the CPU runs it), the stride-4 view
+    and the contiguous copy as asked, and the bounds counting the bytes
+    these inputs need and, apart, every input once."""
+    shapes = [TINY_SHAPE + (5, "view"), TINY_SHAPE + (4, "contiguous")]
+    rows = carve_micro.color_shapes("cpu", 1, 0, shapes=shapes,
+                                    device_timer=lambda fn: 0.25)
+    assert [(r["layout"], r["sets"]) for r in rows] == [
+        ("view", "ellipsoid"), ("view", "random"),
+        ("contiguous", "ellipsoid"), ("contiguous", "random")]
+    for r in rows:
+        assert r["occupancy_equal"] and r["max_ulps"] == 0
+        assert r["ms"] == r["plain_ms"] == r["einsum_ms"] == 0.25
+        N, C = r["voxels"], r["cameras"]
+        assert N == 16 ** 3 and 0 < r["occupied"] < N
+        assert 18 * N < r["bytes"] <= 18 * N + 14 * C * r["occupied"]
+        per_colour = 16 if r["layout"] == "view" else 12
+        assert r["dense_bytes"] == (per_colour + 2) * C * N + 18 * N
+    x = carve_micro.color_inputs("cpu", *TINY_SHAPE[1:], cameras=5)
+    assert x[0].stride() == (4 * 16 ** 3, 4, 1)
+
+
 def test_carve_micro_shapes_on_the_cpu():
     """``--shapes``' rows at a small shape: both kinds of sets, the pair
     equal to its plain version and to the JAX ``ray_cast_visibility_pair``

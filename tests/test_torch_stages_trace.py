@@ -232,6 +232,7 @@ def test_launches_and_binning_a_unit(setup, monkeypatch):
     counted here as the card's wrappers count their launches."""
     fwd, bwd = RK.composite_instances_ref, RK.composite_instances_bwd_ref
     vis = carving.visibility_pair_ref
+    colors = carving.carve_colors_ref
 
     def fwd_counted(*a, **k):
         RK.composite_instances.launches += 1
@@ -245,13 +246,19 @@ def test_launches_and_binning_a_unit(setup, monkeypatch):
         carving.ray_cast_visibility_pair.launches += 1
         return vis(*a, **k)
 
+    def colors_counted(*a, **k):
+        carving.carve_colors_pair.launches += 1
+        return colors(*a, **k)
+
     monkeypatch.setattr(RK, "composite_instances_ref", fwd_counted)
     monkeypatch.setattr(RK, "composite_instances_bwd_ref", bwd_counted)
     monkeypatch.setattr(carving, "visibility_pair_ref", vis_counted)
+    monkeypatch.setattr(carving, "carve_colors_ref", colors_counted)
     # The counters are the process's: put them back for the tests that
     # hold them at 0 on the CPU.
     for wrapper in (RK.composite_instances, RK.composite_instances_bwd,
-                    carving.ray_cast_visibility_pair):
+                    carving.ray_cast_visibility_pair,
+                    carving.carve_colors_pair):
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
     with stages.trace("cpu"):
         setup.train(1)
@@ -259,10 +266,10 @@ def test_launches_and_binning_a_unit(setup, monkeypatch):
     step, frame = stages.last_trace().units
     assert step["launches"] == dict(composite_fwd=1, composite_bwd=1,
                                     carve_visibility=1, conv3d_wgrad=0,
-                                    unets_graph=0)
+                                    unets_graph=0, carve_colors=1)
     assert frame["launches"] == dict(composite_fwd=1, composite_bwd=0,
                                      carve_visibility=1, conv3d_wgrad=0,
-                                     unets_graph=0)
+                                     unets_graph=0, carve_colors=1)
     for u in (step, frame):
         assert u["binning_calls"] == 1
         assert u["binned_rows"] > 0 and u["dropped_rows"] >= 0
@@ -391,10 +398,10 @@ def test_host_syncs_match_torch_on_the_card(preset):
     step_u, frame_u = stages.last_trace().units
     assert step_u["launches"] == dict(composite_fwd=1, composite_bwd=1,
                                       carve_visibility=1, conv3d_wgrad=12,
-                                      unets_graph=0)
+                                      unets_graph=0, carve_colors=1)
     assert frame_u["launches"] == dict(composite_fwd=1, composite_bwd=0,
                                        carve_visibility=1, conv3d_wgrad=0,
-                                       unets_graph=1)
+                                       unets_graph=1, carve_colors=1)
     if preset == "3d":
         return
     # A K-step call: its eager warm-up steps have spans; the captured step
